@@ -1,0 +1,138 @@
+"""Weights carried across from the JAX package.
+
+`convert_params` takes the JAX package's ``params`` tree as nested dicts of
+numpy arrays (a restored checkpoint's ``["state"]["params"]``, or
+``jax.device_get(params)`` with leaves turned into numpy; the caller does
+that: nothing here imports JAX) and returns a ``state_dict`` for
+`AttentionModelPolicy`, whose sub-modules carry the tree's names:
+
+- a Flax ``Dense`` ``kernel [in, out]`` becomes ``nn.Linear.weight``
+  ``[out, in]`` (transposed); ``bias`` and a norm's ``scale``/``bias`` go as
+  they are;
+- ``pointer/project_out_kernel [D, D]`` is **not** transposed (it is used as
+  ``x @ W``);
+- ``context_embedding/W_placeholder`` is copied raw (the −1.0 is applied at
+  use, in `TSPContext`).
+
+`load_params` fills a policy and insists that every leaf is consumed and
+every parameter set. `random_params_numpy` makes a tree of the same
+structure from a numpy seed, so that tests, the golden file and the chip
+smoke run share one set of weights without sharing a framework.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# leaves copied as they are, by their last path component
+_RAW_LEAVES = ("bias", "scale", "project_out_kernel", "W_placeholder")
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, dict):
+            flat.update(_flatten(val, path))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def convert_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays -> ``state_dict`` (f32 CPU tensors).
+    Accepts the tree with or without Flax's outer ``"params"`` key."""
+    if set(tree.keys()) == {"params"} and isinstance(tree["params"], dict):
+        tree = tree["params"]
+    state = {}
+    for path, arr in _flatten(tree).items():
+        *parents, leaf = path
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: a Dense kernel must be 2-D, "
+                                 f"got shape {arr.shape}")
+            name, arr = ".".join(parents + ["weight"]), arr.T
+        elif leaf in _RAW_LEAVES:
+            name = ".".join(path)
+        else:
+            raise ValueError(f"leaf {'/'.join(path)} has no counterpart in the port")
+        state[name] = torch.tensor(np.asarray(arr, dtype=np.float32))  # a copy
+    return state
+
+
+def load_params(policy: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Fill ``policy`` from a JAX ``params`` tree. A leaf left over, a
+    parameter not set, or a shape that differs raises with its path."""
+    state = convert_params(tree)
+    own = policy.state_dict()
+    left_over = sorted(set(state) - set(own))
+    if left_over:
+        raise ValueError(f"leaves with no parameter in the policy: {left_over}")
+    unset = sorted(set(own) - set(state))
+    if unset:
+        raise ValueError(f"parameters of the policy not set by the tree: {unset}")
+    for name, t in state.items():
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: tree has shape {tuple(t.shape)}, "
+                             f"the policy {tuple(own[name].shape)}")
+    policy.load_state_dict(state, strict=True)
+    return policy
+
+
+def random_params_numpy(
+    seed: int,
+    embed_dim: int = 128,
+    num_encoder_layers: int = 3,
+    feedforward_hidden: int = 512,
+    normalization: str = "batch",
+) -> dict:
+    """An AM/TSP ``params`` tree (without the outer ``"params"`` key) drawn
+    from ``np.random.RandomState(seed)``: kernels normal scaled by
+    ``1/sqrt(fan_in)``, biases normal·0.1, norm scales 1 + normal·0.1,
+    ``W_placeholder`` uniform in [0, 2). The draw order is fixed (the golden
+    file depends on it)."""
+    rs = np.random.RandomState(seed)
+    d, f = embed_dim, feedforward_hidden
+
+    def kernel(fan_in, fan_out):
+        return (rs.standard_normal((fan_in, fan_out)) / np.sqrt(fan_in)).astype(np.float32)
+
+    def bias(n):
+        return (0.1 * rs.standard_normal(n)).astype(np.float32)
+
+    def dense(fan_in, fan_out, use_bias=True):
+        out = {"kernel": kernel(fan_in, fan_out)}
+        if use_bias:
+            out["bias"] = bias(fan_out)
+        return out
+
+    def norm():
+        if normalization in (None, "none", "layer"):
+            return None
+        out = {"scale": (1.0 + 0.1 * rs.standard_normal(d)).astype(np.float32)}
+        if normalization in ("batch", "instance"):
+            out["bias"] = bias(d)
+        return out
+
+    tree = {"init_embedding": {"init_embed": dense(2, d)}, "encoder_net": {}}
+    for i in range(num_encoder_layers):
+        layer = {
+            "mha": {"Wqkv": dense(d, 3 * d), "out_proj": dense(d, d)},
+            "ffn": {"Dense_0": dense(d, f), "Dense_1": dense(f, d)},
+        }
+        for name in ("norm1", "norm2"):
+            p = norm()
+            if p is not None:
+                layer[name] = p
+        tree["encoder_net"][f"layer_{i}"] = layer
+    tree["project_node_embeddings"] = dense(d, 3 * d, use_bias=False)
+    tree["project_fixed_context"] = dense(d, d, use_bias=False)
+    tree["context_embedding"] = {
+        "W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
+        "project_context": dense(2 * d, d, use_bias=False),
+    }
+    tree["pointer"] = {"project_out_kernel": kernel(d, d)}
+    return tree

@@ -1,0 +1,57 @@
+"""Context (decoder-query) modules per environment (counterpart of
+`rl4co_tpu/models/nn/env_embeddings/context.py`): the decode-step query is
+``project_context(cat(first_node_embedding, current_node_embedding))``.
+
+Modules consume ``(node_embs [B, N, D], state)`` with the batched env state.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from rl4co_tpu_torch.utils.ops import gather_by_index
+
+
+class TSPContext(nn.Module):
+    """first+current node embeddings; a learned placeholder before the first
+    step. The stored ``W_placeholder`` is ~U(0, 2) and is used as
+    ``W_placeholder - 1.0``, exactly as the JAX package stores and uses it."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.W_placeholder = nn.Parameter(torch.rand(2 * embed_dim) * 2.0)
+        self.project_context = nn.Linear(2 * embed_dim, embed_dim, bias=False)
+
+    @staticmethod
+    def _gather(embeddings: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        b = embeddings.shape[0]
+        if idx.shape[0] == b:
+            return gather_by_index(embeddings, idx)
+        # grouped decode: a flat repeat-major state [g*B] reads the untiled
+        # embeddings [B, N, D] through a [B, g] index (no g-fold copy of them)
+        g = idx.shape[0] // b
+        out = gather_by_index(embeddings, idx.reshape(g, b).t())  # [B, g, D]
+        return out.transpose(0, 1).reshape(g * b, -1)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        first = self._gather(embeddings, state.first_node)      # [B', D]
+        cur = self._gather(embeddings, state.current_node)      # [B', D]
+        ctx = torch.cat([first, cur], dim=-1)                   # [B, 2D]
+        is_first = (state.i < 1)[:, None]
+        ctx = torch.where(is_first, (self.W_placeholder - 1.0)[None, :], ctx)
+        return self.project_context(ctx)
+
+
+CONTEXT_EMBEDDING_REGISTRY = {
+    "tsp": TSPContext,
+}
+
+
+def env_context_embedding(env_name: str, embed_dim: int) -> nn.Module:
+    if env_name not in CONTEXT_EMBEDDING_REGISTRY:
+        raise NotImplementedError(
+            f"No context embedding ported for env '{env_name}' "
+            f"(available: {sorted(CONTEXT_EMBEDDING_REGISTRY)})"
+        )
+    return CONTEXT_EMBEDDING_REGISTRY[env_name](embed_dim)

@@ -1,0 +1,34 @@
+"""Initial (node-feature → embedding) modules per environment (counterpart
+of `rl4co_tpu/models/nn/env_embeddings/init.py`). Each module maps a batched
+instance dict to node embeddings ``[B, N_actions, D]``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class TSPInitEmbedding(nn.Module):
+    """xy coords → embedding."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed = nn.Linear(2, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        return self.init_embed(instance["locs"])
+
+
+INIT_EMBEDDING_REGISTRY = {
+    "tsp": TSPInitEmbedding,
+}
+
+
+def env_init_embedding(env_name: str, embed_dim: int) -> nn.Module:
+    if env_name not in INIT_EMBEDDING_REGISTRY:
+        raise NotImplementedError(
+            f"No init embedding ported for env '{env_name}' "
+            f"(available: {sorted(INIT_EMBEDDING_REGISTRY)})"
+        )
+    return INIT_EMBEDDING_REGISTRY[env_name](embed_dim)

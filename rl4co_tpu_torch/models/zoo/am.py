@@ -1,0 +1,116 @@
+"""Attention Model policy (Kool et al. 2019), counterpart of
+`rl4co_tpu/models/zoo/am.py`.
+
+encoder = init embedding + graph attention stack; the decoder precomputes
+glimpse K/V + logit K + graph context once per instance, then each decode
+step is context embedding → pointer attention. The rollout loop itself lives
+in `rl4co_tpu_torch/models/policies/constructive.py`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from rl4co_tpu_torch.models.nn.attention import PointerAttention
+from rl4co_tpu_torch.models.nn.env_embeddings import (
+    env_context_embedding,
+    env_init_embedding,
+)
+from rl4co_tpu_torch.models.nn.graph.attnnet import GraphAttentionNetwork
+from rl4co_tpu_torch.models.policies.constructive import (
+    ConstructivePolicy,
+    PrecomputedCache,
+)
+from rl4co_tpu_torch.utils.device import resolve_device
+
+
+class AttentionModelPolicy(ConstructivePolicy):
+    """AM encoder/decoder policy.
+
+    Defaults are the published ones: embed 128, 3 encoder layers, 8 heads,
+    ff 512, batch norm, graph context on. Sub-module names are those of the
+    JAX package's parameter tree, so `rl4co_tpu_torch.convert` maps a tree
+    onto this module by path. ``pointer_impl="kernel"`` sends every decode
+    step through the fused CUDA kernel; ``"plain"`` is its plain composition.
+    """
+
+    def __init__(
+        self,
+        env_name: str = "tsp",
+        embed_dim: int = 128,
+        num_encoder_layers: int = 3,
+        num_heads: int = 8,
+        feedforward_hidden: int = 512,
+        normalization: str = "batch",
+        use_graph_context: bool = True,
+        pointer_impl: str = "kernel",
+        device="cuda",
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.env_name = env_name
+        self.embed_dim = embed_dim
+        self.num_encoder_layers = num_encoder_layers
+        self.num_heads = num_heads
+        self.use_graph_context = use_graph_context
+        self.init_embedding = env_init_embedding(env_name, embed_dim)
+        self.encoder_net = GraphAttentionNetwork(
+            embed_dim=embed_dim,
+            num_heads=num_heads,
+            num_layers=num_encoder_layers,
+            normalization=normalization,
+            feedforward_hidden=feedforward_hidden,
+        )
+        self.context_embedding = env_context_embedding(env_name, embed_dim)
+        self.project_node_embeddings = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
+        self.project_fixed_context = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.pointer = PointerAttention(embed_dim, num_heads, impl=pointer_impl)
+        self.to(device)
+
+    def encode(self, instances) -> torch.Tensor:
+        return self.encoder_net(self.init_embedding(instances))
+
+    def precompute(self, embeddings: torch.Tensor) -> PrecomputedCache:
+        proj = self.project_node_embeddings(embeddings)
+        # glimpse K, glimpse V, logit K, in that order; made contiguous once
+        # here because every decode step hands them to the kernel
+        glimpse_k, glimpse_v, logit_k = (
+            t.contiguous() for t in proj.chunk(3, dim=-1)
+        )
+        if self.use_graph_context:
+            graph_context = self.project_fixed_context(embeddings.mean(dim=-2))
+        else:
+            graph_context = 0.0
+        return PrecomputedCache(
+            node_embeddings=embeddings,
+            graph_context=graph_context,
+            glimpse_key=glimpse_k,
+            glimpse_val=glimpse_v,
+            logit_key=logit_k,
+        )
+
+    def decode_step(self, cache: PrecomputedCache, state, mask,
+                    num_repeats: int = 1) -> torch.Tensor:
+        """One decode step.
+
+        With ``num_repeats == g > 1`` the cache stays *untiled* ``[B, ...]``
+        while the state/mask are flat ``[g*B, ...]`` (repeat-major): the g
+        starts/samples of an instance become a query axis sharing one K/V
+        load. Logits go back flat ``[g*B, N]``.
+        """
+        gk, gv, lk = cache.glimpse_key, cache.glimpse_val, cache.logit_key
+        # the context embedding reads the untiled node embeddings for a flat
+        # repeat-major state too
+        query = self.context_embedding(cache.node_embeddings, state)  # [g*B, D]
+        if num_repeats == 1:
+            return self.pointer(query + cache.graph_context, gk, gv, lk, mask)
+
+        g = num_repeats
+        b, n, d = cache.node_embeddings.shape
+        if self.use_graph_context:
+            query = query + cache.graph_context.repeat(g, 1)
+        query_g = query.reshape(g, b, d).transpose(0, 1)         # [B, g, D]
+        mask_g = mask.reshape(g, b, n).transpose(0, 1)           # [B, g, N]
+        logits = self.pointer(query_g, gk, gv, lk, mask_g)       # [B, g, N]
+        return logits.transpose(0, 1).reshape(g * b, n)
