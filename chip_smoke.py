@@ -2,23 +2,28 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
-its plain PyTorch version on the card, drives the port's main path (the
-Attention Model, full width, evaluated on TSP-50) through `evaluate_policy`
-with and without the kernels, and replays the JAX package's golden greedy
+its plain PyTorch version on the card, drives the port's two main paths at
+full width (the Attention Model evaluated on TSP-50 through `evaluate_policy`
+with and without the kernels; the same model trained with REINFORCE and the
+greedy rollout baseline through `Trainer.fit`, gradients flowing through the
+kernels' `autograd.Function`), and replays the JAX package's golden greedy
 tours. Every phase prints one JSON line; any failure is a traceback and a
 non-zero exit. Without a card it exits non-zero and prints no result.
 
-Weights are random, made from a numpy seed; instances are the committed
-`data/tsp/test50_seed1234.npz`. Needs numpy, torch, nvcc and nvidia-smi;
-imports nothing of JAX.
+Weights are random, made from a seed; evaluation instances are the committed
+`data/tsp/test50_seed1234.npz`, training batches are generated on the card.
+Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,11 +66,21 @@ CASES = [
     (16, 50, 50, 128, 8, "one_column"),
     (4, 9, 50, 128, 8, "one_row_all_masked"),
     (3, 5, 13, 20, 2, 0.7),             # D below a warp, odd N
+    (512, None, 50, 128, 8, 0.7),       # a train step's two rollouts on TSP-50
+    (512, None, 20, 128, 8, 0.65),      # ... and on TSP-20
+    (64, 50, 50, 128, 8, 0.7),          # a multistart train step
 ]
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches():
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def make_case(rs, b, l, n, d, h, feasible, device):
@@ -254,8 +269,7 @@ def drive_path(env, policies, locs, device, methods=PATH_METHODS):
                     check_solutions=True, warmup=warmup, generator=gen,
                     device=device, **extra)
             run(False)  # untimed first pass: builds, first launches
-            for name in LAUNCHES:
-                LAUNCHES[name] = 0
+            reset_launches()
             res[impl] = run(False)
             counts = dict(LAUNCHES)
             # the loop is bound by the host, whose clock is noisy: two more
@@ -297,14 +311,55 @@ def drive_path(env, policies, locs, device, methods=PATH_METHODS):
     return report, total
 
 
+def device_events(fn):
+    """Run ``fn`` under `torch.profiler`; returns its result, the device's
+    kernels as ``(name, start, duration)`` and the host's `record_function`
+    ranges named ``part:...`` as ``{name: (start, end)}``, all in the
+    profiler's microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    kernels, ranges = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            # device-side kernels only: an annotated region's row on the device
+            # (`Optimizer.step#...`, a `part:`) repeats its kernels' time
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name.startswith(("Optimizer.", "part:"))):
+                kernels.append((e.name, e.time_range.start, e.time_range.end - e.time_range.start))
+        elif e.name.startswith("part:"):
+            ranges[e.name[len("part:"):]] = (e.time_range.start, e.time_range.end)
+    return result, kernels, ranges
+
+
+def top_kernels(kernels, n):
+    """``(name, duration in us)`` pairs summed by name: the ``n`` largest."""
+    by_name = {}
+    for name, us in kernels:
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + us / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:60], "ms": ms, "launches": c} for k, (ms, c) in top]
+
+
+def device_profile(fn):
+    """Run ``fn`` under `torch.profiler`; returns its result, the time the
+    device was busy (sum over its kernels, ms; None if the profiler saw no
+    device activity), the device launches and the kernels by device time."""
+    result, kernels, _ = device_events(fn)
+    busy_ms = sum(d for _, _, d in kernels) / 1e3 if kernels else None
+    return result, busy_ms, len(kernels), top_kernels([(k, d) for k, _, d in kernels], 6)
+
+
 def profile_dispatch(env, policy, locs, device, method, count):
     """One dispatch timed plainly, then again under `torch.profiler`: the
     time the device was busy (sum over its kernels), launches, and the
     kernels that took most of the device's time. The busy share is taken
     against the wall time without the profiler, which slows the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
     def run():
@@ -313,23 +368,14 @@ def profile_dispatch(env, policy, locs, device, method, count):
 
     run()
     wall_ms = run()["inference_time"] * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run()["inference_time"] * 1e3
-    # device-side events only: an operator's row repeats its kernels' time
-    kernels = sorted(
-        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda e: -e[1])
-    busy_ms = sum(e[1] for e in kernels) / 1e3
+    res, busy_ms, launches, top = device_profile(run)
     return {
         "method": method, "instances": count, "wall_ms": wall_ms,
-        "wall_ms_under_profiler": profiled_ms,
-        # None: the profiler saw no device activity on this machine
-        "device_busy_ms": busy_ms if kernels else None,
-        "device_busy_share": busy_ms / wall_ms if kernels else None,
-        "device_launches": sum(e[2] for e in kernels),
-        "top_kernels": [{"name": k[:60], "ms": t / 1e3, "launches": c}
-                        for k, t, c in kernels[:6]],
+        "wall_ms_under_profiler": res["inference_time"] * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": None if busy_ms is None else busy_ms / wall_ms,
+        "device_launches": launches,
+        "top_kernels": top,
     }
 
 
@@ -345,8 +391,9 @@ def check_golden(env, policy, locs, device, path=None):
     actions = np.asarray(golden["actions"], dtype=np.int64)
     n = actions.shape[0]
     inst = {"locs": locs[:n]}
-    out = rollout(policy, env, inst, DecodeSpec(kind="evaluate", tanh_clipping=10.0),
-                  replay_actions=actions, device=device)
+    with torch.no_grad():
+        out = rollout(policy, env, inst, DecodeSpec(kind="evaluate", tanh_clipping=10.0),
+                      replay_actions=actions, device=device)
     ll = out.log_likelihood.cpu().numpy()
     cost = -out.reward.cpu().numpy()
     # 50 summed f32 log-probs under another order of summation: atol 2e-3
@@ -355,11 +402,433 @@ def check_golden(env, policy, locs, device, path=None):
                       / np.asarray(golden["cost"])).max())
     assert ll_err <= 2e-3, f"golden log-likelihood off by {ll_err:.3e}"
     assert cost_rel <= 1e-5, f"golden cost off by {cost_rel:.3e} relative"
-    greedy = rollout(policy, env, inst, DecodeSpec(kind="greedy", tanh_clipping=10.0),
-                     device=device)
+    with torch.no_grad():
+        greedy = rollout(policy, env, inst, DecodeSpec(kind="greedy", tanh_clipping=10.0),
+                         device=device)
     same = int((greedy.actions.cpu().numpy() == actions).all(axis=1).sum())
     return {"instances": n, "log_likelihood_max_abs_err": ll_err,
             "cost_max_rel_err": cost_rel, "greedy_tours_reproduced": same}
+
+
+# ---------------------------------------------------------------- training
+
+# Gradients of the kernel path against the plain path. Both run the same
+# backward (the recompute of the plain version); they differ by the forward
+# logits' last bits (1e-6, phase `kernels`), which 50 softmaxes and the
+# encoder's batch-norm statistics carry into the loss and its gradients.
+# Per parameter: |g_kernel - g_plain| <= GRAD_ATOL * max|g| + GRAD_RTOL * |g_plain|.
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+LOSS_RTOL = 1e-4
+# shapes at which the Function's gradients are held against plain autograd
+GRAD_SHAPES = {
+    "pointer_step_single": (512, None, 50, 128, 8),
+    "pointer_step_grouped": (64, 50, 50, 128, 8),
+}
+# greedy cost on TSP-20 must fall by at least this much in phase (d): half of
+# the fall first measured on an H100 at this size (3.97, from 8.13 to 4.16)
+LEARN_MARGIN = 2.0
+
+
+def backward_bound_ms(b, l, n, d):
+    """Least time for the backward of one pointer step: q, K, V, LK, W, bias
+    and the logits' gradient read once, the five gradients written once;
+    three times the forward's operations (the recompute, then two products
+    per forward product)."""
+    ll = 1 if l is None else l
+    nbytes = 4 * (6 * b * n * d + 2 * b * ll * d + 2 * b * ll * n + 2 * d * d)
+    flops = 3 * b * ll * (6 * n * d + 2 * d * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_function_gradients(device, seed=2, iters=20):
+    """The `Function` at the training shapes. Its forward is the kernel and is
+    held against the plain version's logits; its five gradients are held
+    against plain autograd's, which checks the `Function`'s wiring (saved
+    inputs, `needs_input_grad`, the order of the gradients) and not the
+    kernel: both sides take them from the plain version's graph. Also the
+    device time of its backward."""
+    from rl4co_tpu_torch.ops.pointer_kernel import (
+        fused_pointer_logits,
+        pointer_logits_plain,
+    )
+
+    rs = np.random.RandomState(seed)
+    report = {}
+    for name, (b, l, n, d, h) in GRAD_SHAPES.items():
+        q, k, v, lk, bias, w, _ = make_case(rs, b, l, n, d, h, 0.7, device)
+        cot = torch.from_numpy(rs.standard_normal(tuple(bias.shape)).astype(np.float32)).to(device)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lk, w)]
+            out = fn(*leaves[:4], bias, leaves[4], h)
+            return out, leaves, lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+        out_k, _, back_k = grads(fused_pointer_logits)
+        out_p, _, back_p = grads(pointer_logits_plain)
+        assert out_k.grad_fn is not None and "PointerLogits" in type(out_k.grad_fn).__name__
+        assert out_k.shape == out_p.shape and torch.isfinite(out_k).all(), name
+        fwd_err = (out_k - out_p).detach().abs()
+        over = (fwd_err - (ATOL + RTOL * out_p.detach().abs())).max().item()
+        assert over <= 0, (f"{name}: under autograd the kernel's logits disagree with the "
+                           f"plain version's: max abs err {fwd_err.max().item():.3e}")
+        worst = 0.0
+        for gname, gk, gp in zip(("q", "k", "v", "lk", "w_out"), back_k(), back_p()):
+            assert gk.shape == gp.shape and torch.isfinite(gk).all(), gname
+            err = (gk - gp).abs()
+            over = (err - (ATOL + RTOL * gp.abs())).max().item()
+            assert over <= 0, (f"{name}: gradient of {gname} disagrees with plain autograd: "
+                               f"max abs err {err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+
+        def many(back):
+            for _ in range(iters):
+                back()
+
+        many(back_k)  # warm up
+        _, busy_k, launches_k, _ = device_profile(lambda: many(back_k))
+        _, busy_p, launches_p, _ = device_profile(lambda: many(back_p))
+        t_bound, bound_by = backward_bound_ms(b, l, n, d)
+        report[name] = {
+            "shape": {"B": b, "L": l, "N": n, "D": d, "H": h},
+            "forward_max_abs_err": fwd_err.max().item(),
+            "grad_max_abs_err": worst,
+            # the Function's backward: recompute of the plain forward + its backward
+            "backward_device_ms": None if busy_k is None else busy_k / iters,
+            "backward_device_launches": launches_k / iters,
+            # plain autograd's backward alone (its forward's intermediates were saved)
+            "plain_backward_device_ms": None if busy_p is None else busy_p / iters,
+            "plain_backward_device_launches": launches_p / iters,
+            "backward_bound_ms": t_bound, "backward_bound_by": bound_by,
+        }
+    return report
+
+
+def check_training_gradients(env, device, batch=64):
+    """(a) The kernel-path policy samples under grad and gives a REINFORCE
+    loss against a rollout-baseline snapshot with other weights; the
+    plain-path policy, same weights, replays the same actions with the same
+    baseline values. Loss and every parameter's gradient must agree."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.baselines import Baseline, RolloutBaseline
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE, seeded_generator
+
+    class GivenBaseline(Baseline):
+        """Hands back the values it was given (the kernel path's)."""
+
+        def __init__(self, values):
+            object.__setattr__(self, "values", values)
+
+        def eval(self, state, instances, reward, rollout_fn):
+            return self.values, torch.zeros((), device=reward.device)
+
+    spec = DecodeSpec(kind="sampling", tanh_clipping=10.0)
+    live = make_policies(device, seed=0)
+    snapshot = make_policies(device, seed=1)["kernel"].requires_grad_(False)
+    inst = env.generate(batch, seeded_generator(device, 11), device)
+
+    algo_k = REINFORCE(env, live["kernel"], baseline=RolloutBaseline(), train_spec=spec)
+    algo_k.baseline_state = dataclasses.replace(algo_k.baseline_state, bl_policy=snapshot)
+    algo_k.reseed(12)
+    reset_launches()
+    loss_k, (metrics_k, out_k) = algo_k.loss(inst)
+    loss_k.backward()
+    assert LAUNCHES["pointer_step_single"] == 2 * env.max_steps, dict(LAUNCHES)
+    bl_val, _ = algo_k.baseline.eval(algo_k.baseline_state, inst, out_k.reward,
+                                     algo_k.greedy_reward_fn())
+    assert torch.allclose(bl_val.mean(), metrics_k["bl_val"], rtol=1e-6)  # it repeats
+
+    algo_p = REINFORCE(env, live["plain"], baseline=GivenBaseline(bl_val), train_spec=spec)
+    reset_launches()
+    loss_p, (_, out_p) = algo_p.loss(inst, replay_actions=out_k.actions)
+    loss_p.backward()
+    assert sum(LAUNCHES.values()) == 0, dict(LAUNCHES)
+    assert torch.equal(out_p.actions, out_k.actions)
+    env.check_solution_validity({}, out_k.actions)
+
+    lk, lp = loss_k.item(), loss_p.item()
+    assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
+    grads_p = {n: p.grad for n, p in live["plain"].named_parameters()}
+    scale = max(g.abs().max().item() for g in grads_p.values())
+    assert scale > 1e-3, f"gradients vanish (max {scale:.3e}): the check would be vacuous"
+    worst_abs, worst_name = 0.0, None
+    for name, p in live["kernel"].named_parameters():
+        gk, gp = p.grad, grads_p[name]
+        assert gk is not None and torch.isfinite(gk).all(), name
+        err = (gk - gp).abs()
+        over = (err - (GRAD_ATOL * scale + GRAD_RTOL * gp.abs())).max().item()
+        assert over <= 0, (f"gradient of {name} differs between kernel and plain path: "
+                           f"max abs err {err.max().item():.3e} at scale {scale:.3e}")
+        if err.max().item() > worst_abs:
+            worst_abs, worst_name = err.max().item(), name
+    return {"batch": batch, "loss_kernel": lk, "loss_plain": lp,
+            "loss_rel_err": abs(lk - lp) / abs(lp), "grad_scale": scale,
+            "grad_max_abs_err": worst_abs, "grad_max_abs_err_at": worst_name,
+            "grad_max_err_over_scale": worst_abs / scale,
+            "parameters": len(grads_p), "loss_rtol": LOSS_RTOL,
+            "grad_rtol": GRAD_RTOL, "grad_atol_of_scale": GRAD_ATOL}
+
+
+def split_step(algo, batch_size):
+    """One `algo.train_step`, the entry point itself, with marks where it
+    calls its parts: `loss`, inside it the baseline's rollout function, and
+    the optimiser's `step`. Each mark synchronises the device on entry and on
+    exit, so a part's kernels run between its marks. The sampling rollout is
+    `loss` without the baseline's rollout; the backward is what lies between
+    the end of `loss` and the optimiser's `step`; the rest of the step
+    (generating the batch, `zero_grad`, the baseline's update) is `other`.
+    One step is timed plainly (host clock), one more under the profiler:
+    wall ms, device busy ms, device launches and top device kernels per part."""
+    from torch.profiler import record_function
+
+    marks = {}
+
+    def marked(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function("part:" + name):
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            marks[name] = (t0 * 1e3, time.perf_counter() * 1e3)
+            return result
+        return wrapper
+
+    def derive(ranges):
+        """Start and end of every part from the marked ranges."""
+        step, loss, bl, opt = (ranges[k] for k in ("step", "loss", "baseline_rollout",
+                                                   "optimizer"))
+        assert step[0] <= loss[0] <= bl[0] <= bl[1] <= loss[1] <= opt[0] <= opt[1] <= step[1]
+        return {"sampling_rollout": [(loss[0], bl[0]), (bl[1], loss[1])],
+                "baseline_rollout": [bl], "backward": [(loss[1], opt[0])],
+                "optimizer": [opt], "other": [(step[0], loss[0]), (opt[1], step[1])]}
+
+    reward_fn = algo.greedy_reward_fn
+    patched = {  # instance attributes that shadow the methods `update` calls
+        algo: {"loss": marked("loss", algo.loss),
+               "greedy_reward_fn": lambda: marked("baseline_rollout", reward_fn())},
+        algo.optimizer: {"step": marked("optimizer", algo.optimizer.step)},
+    }
+    # the class's `train_step`: `timed_steps` may have wrapped the instance's
+    step = marked("step", lambda: type(algo).train_step(algo, batch_size))
+    for obj, attrs in patched.items():
+        for attr, fn in attrs.items():
+            assert attr not in vars(obj), attr
+            setattr(obj, attr, fn)
+    steps_before = algo.step
+    step()                                   # plain pass
+    spans = derive(marks)
+    report = {name: {"wall_ms": sum(t1 - t0 for t0, t1 in parts)}
+              for name, parts in spans.items()}
+    marks.clear()
+    _, kernels, ranges = device_events(step)  # profiled pass
+    for obj, attrs in patched.items():
+        for attr in attrs:
+            delattr(obj, attr)
+    assert algo.step == steps_before + 2 and not marks.keys() - ranges.keys()
+
+    spans = derive(ranges)
+    seen = 0
+    for name, parts in spans.items():
+        mine = [(k, d) for k, start, d in kernels
+                if any(t0 <= start < t1 for t0, t1 in parts)]
+        report[name].update({
+            "device_busy_ms": sum(d for _, d in mine) / 1e3, "device_launches": len(mine),
+            "top_kernels": top_kernels(mine, 4),
+            "pointer_step_single": sum("pointer_step_single" in k for k, _ in mine)})
+        seen += len(mine)
+    # the host's ranges and the device's kernels share one clock only if every
+    # kernel falls into a part, and each rollout's 50 pointer steps into its own
+    assert kernels and seen == len(kernels), (seen, len(kernels))
+    assert [report[n]["pointer_step_single"] for n in spans] == [
+        algo.env.max_steps, algo.env.max_steps, 0, 0, 0], report
+    wall = sum(r["wall_ms"] for r in report.values())
+    busy = sum(r["device_busy_ms"] for r in report.values())
+    report["step"] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "device_busy_share": busy / wall, "device_launches": len(kernels)}
+    return report
+
+
+def timed_steps(algo):
+    """Wrap ``algo.train_step`` so that every step is synchronised, timed and
+    its kernel launches counted; returns the lists it fills."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    inner, ms, launches = algo.train_step, [], []
+
+    def train_step(batch_size):
+        torch.cuda.synchronize()
+        before, t0 = dict(LAUNCHES), time.perf_counter()
+        metrics = inner(batch_size)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        return metrics
+
+    algo.train_step = train_step
+    return ms, launches
+
+
+def train_full_width(env, locs, device, batch=512, steps=12, val=1024):
+    """(b) `AttentionModel(env)` with its defaults through `Trainer.fit()`:
+    one epoch, validation on committed instances, `epoch_end` with the t-test
+    on a held-out set. Launch counts start at 0 here and are read at the end."""
+    from rl4co_tpu_torch.models.zoo.am import AttentionModel
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.trainer import Trainer, TrainerConfig
+
+    torch.manual_seed(1234)
+    algo = AttentionModel(env)
+    assert algo.device.type == device.type and algo.policy.pointer.impl == "kernel"
+    before = [p.detach().clone() for p in algo.policy.parameters()]
+    step_ms, step_launches = timed_steps(algo)
+    logged = []
+    trainer = Trainer(algo, TrainerConfig(
+        epochs=1, batch_size=batch, train_data_size=steps * batch, val_data_size=val,
+        val_batch_size=val, seed=1234, log_every=steps - 1), logger=logged.append)
+    reset_launches()
+    trainer.fit(val_datasets={"tsp50": {"locs": locs[:val]}})
+    launches = dict(LAUNCHES)
+
+    per_step = {"pointer_step_single": 2 * env.max_steps, "pointer_step_grouped": 0}
+    assert algo.step == steps and len(step_ms) == steps
+    assert all(l == per_step for l in step_launches), step_launches
+    # + the held-out set's incumbent and candidate rollouts and one validation batch
+    assert launches == {"pointer_step_single": (2 * steps + 3) * env.max_steps,
+                        "pointer_step_grouped": 0}, launches
+    losses = [r["loss"] for r in logged if "loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(x) for x in losses), losses
+    grad_norm = algo.optimizer.grad_norm.item()
+    assert np.isfinite(grad_norm) and grad_norm > 0, grad_norm
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(algo.policy.parameters(), before))
+    assert moved > 1e-5 and all(torch.isfinite(p).all() for p in algo.policy.parameters())
+    assert algo.baseline_state.epoch == 1
+    rec = trainer.history[-1]
+    assert np.isfinite(rec["val/tsp50/reward"])
+    median = statistics.median(step_ms)
+    report = {
+        "model": "AM 128/8/3/512 batch norm, TSP-50, REINFORCE, rollout baseline, Adam 1e-4",
+        "batch": batch, "steps": steps,
+        "step_ms_median": median, "step_ms_runs": step_ms,
+        "instances_per_s": batch / median * 1e3,
+        "env_steps_per_s": batch * env.max_steps / median * 1e3,
+        "epoch_env_steps_per_s": rec["env_steps_per_s"], "epoch_s": rec["time/epoch_s"],
+        "launches_per_step": per_step, "launches": launches,
+        "loss_first_last_logged": losses, "grad_norm_last": grad_norm,
+        "max_parameter_change": moved, "val_cost": -rec["val/tsp50/reward"],
+        "split": split_step(algo, batch),
+    }
+    return report, launches
+
+
+def train_grouped(env, device, batch=64, steps=3):
+    """(c) The grouped kernel under grad: multistart sampling with the shared
+    baseline. Launch counts start at 0 here and are read at the end."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.baselines import SharedBaseline
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    starts = env.get_num_starts()
+    policy = make_policies(device, seed=0)["kernel"]
+    before = [p.detach().clone() for p in policy.parameters()]
+    algo = REINFORCE(env, policy, baseline=SharedBaseline(num_repeats=starts),
+                     train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0,
+                                           multistart=True, num_starts=starts))
+    algo.reseed(21)
+    step_ms, step_launches = timed_steps(algo)
+    reset_launches()
+    metrics = [algo.train_step(batch) for _ in range(steps)]
+    launches = dict(LAUNCHES)
+    per_rollout = {"pointer_step_single": 0, "pointer_step_grouped": env.max_steps}
+    assert all(l == per_rollout for l in step_launches), step_launches
+    losses = [m["loss"].item() for m in metrics]
+    assert all(np.isfinite(x) and x != 0.0 for x in losses), losses
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(policy.parameters(), before))
+    assert moved > 1e-5
+    return {"batch": batch, "starts": starts, "steps": steps, "step_ms_runs": step_ms,
+            "launches_per_rollout": per_rollout, "launches": launches, "losses": losses,
+            "grad_norm_last": algo.optimizer.grad_norm.item(),
+            "max_parameter_change": moved}, launches
+
+
+def train_learns(device, num_loc=20, batch=512, steps=100, val=1024):
+    """(d) Full width on TSP-20 at the default learning rate: greedy cost on a
+    fixed seeded set before and after one epoch of `Trainer.fit()`."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.am import AttentionModel
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+    from rl4co_tpu_torch.trainer import Trainer, TrainerConfig
+
+    env = get_env("tsp", num_loc=num_loc)
+    torch.manual_seed(4321)
+    algo = AttentionModel(env)
+    fixed = env.generate(val, seeded_generator(device, 4321, 0), device)
+    eval_step = algo.make_eval_step()
+    before = -eval_step(fixed)["reward"].item()
+    trainer = Trainer(algo, TrainerConfig(
+        epochs=1, batch_size=batch, train_data_size=steps * batch, val_data_size=val,
+        val_batch_size=val, seed=4321, log_every=10 ** 9), logger=lambda m: None)
+    t0 = time.perf_counter()
+    trainer.fit(val_datasets={"fixed": fixed})
+    seconds = time.perf_counter() - t0
+    after = -eval_step(fixed)["reward"].item()
+    assert abs(after + trainer.history[-1]["val/fixed/reward"]) <= 1e-5 * after
+    assert before - after >= LEARN_MARGIN, (
+        f"greedy cost on TSP-{num_loc} fell from {before:.4f} to {after:.4f}: "
+        f"less than the margin {LEARN_MARGIN}")
+    return {"num_loc": num_loc, "batch": batch, "steps": steps, "instances": val,
+            "greedy_cost_before": before, "greedy_cost_after": after,
+            "fall": before - after, "margin": LEARN_MARGIN, "seconds": seconds,
+            "env_steps_per_s": trainer.history[-1]["env_steps_per_s"]}
+
+
+def train_resumes(device, num_loc=20, batch=64, steps_per_epoch=2):
+    """(e) A checkpoint written on the card restores there: one epoch, a new
+    process's worth of fresh objects resumed for the second epoch, then one
+    further step, against two epochs straight and the same further step."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.am import AttentionModel
+    from rl4co_tpu_torch.trainer import Trainer, TrainerConfig
+
+    env = get_env("tsp", num_loc=num_loc)
+
+    def make(epochs, ckpt_dir):
+        torch.manual_seed(99)
+        algo = AttentionModel(env, train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+        cfg = TrainerConfig(epochs=epochs, batch_size=batch,
+                            train_data_size=steps_per_epoch * batch, val_data_size=128,
+                            val_batch_size=128, seed=7, ckpt_dir=ckpt_dir)
+        return algo, Trainer(algo, cfg, logger=lambda m: None)
+
+    def further_step(algo):
+        algo.reseed(7, 12345)
+        return algo.train_step(batch)["loss"].item()
+
+    full, trainer = make(2, None)
+    trainer.fit()
+    loss_full = further_step(full)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        _, trainer = make(1, ckpt_dir)
+        trainer.fit()
+        resumed, trainer = make(2, ckpt_dir)
+        trainer.fit(resume_from=os.path.join(ckpt_dir, "last.pt"))
+    assert [r["epoch"] for r in trainer.history] == [1]
+    assert resumed.step == full.step - 1 == 2 * steps_per_epoch
+    assert all(p.device.type == device.type for p in resumed.policy.parameters())
+    assert all(p.device.type == device.type
+               for p in resumed.baseline_state.bl_policy.parameters())
+    loss_resumed = further_step(resumed)
+    # gather's backward adds with atomics on the card, in an order that changes
+    # from run to run: the two runs agree to f32 rounding, not to the bit
+    rel = abs(loss_resumed - loss_full) / abs(loss_full)
+    assert np.isfinite(loss_full) and rel <= 1e-4, (loss_full, loss_resumed)
+    return {"loss_uninterrupted": loss_full, "loss_resumed": loss_resumed, "rel_err": rel,
+            "rtol": 1e-4, "steps_before_the_compared_one": resumed.step - 1}
 
 
 def main() -> int:
@@ -414,14 +883,29 @@ def main() -> int:
     # 5. golden
     emit({"phase": "golden", **check_golden(env, policies["kernel"], locs, device)})
 
+    # 6. training: gradients through the kernels, then the trainer's paths
+    emit({"phase": "train", "part": "a", "card": smi,
+          "function_gradients": check_function_gradients(device),
+          "reinforce_loss_and_gradients": check_training_gradients(env, device)})
+    report, train_launches = train_full_width(env, locs, device)
+    emit({"phase": "train", "part": "b", "card": smi, **report})
+    report, grouped_launches = train_grouped(env, device)
+    emit({"phase": "train", "part": "c", "card": smi, **report})
+    emit({"phase": "train", "part": "d", "card": smi, **train_learns(device)})
+    emit({"phase": "train", "part": "e", "card": smi, **train_resumes(device)})
+    by_path = {"evaluation": launches, "training": {
+        name: train_launches[name] + grouped_launches[name] for name in launches}}
+
     kernels = []
     for name in MAIN_SHAPES:
-        assert launches[name] > 0, f"{name} was never launched on the main path"
+        for path, counts in by_path.items():
+            assert counts[name] > 0, f"{name} was never launched on the {path} path"
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "replaces_body": REPLACES_BODY[name],
-            "launches": launches[name],
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": stats[name]["max_abs_err"], "cases": stats[name]["cases"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

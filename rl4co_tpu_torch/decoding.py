@@ -39,7 +39,7 @@ class DecodeSpec:
     # mixed precision of the forward pass; anything but None waits for the
     # bf16 slice and raises
     compute_dtype: Optional[str] = None
-    # rematerialize the decode step in the backward pass; read by training
+    # rematerialize the decode step in the backward pass: not ported, True raises
     remat: bool = False
 
     def __post_init__(self):
@@ -47,6 +47,9 @@ class DecodeSpec:
             raise ValueError(f"unknown decode kind {self.kind!r}")
         if self.multistart and self.num_samples > 1:
             raise ValueError("multistart and num_samples > 1 are mutually exclusive")
+        if self.remat:
+            raise NotImplementedError(
+                "remat=True: rematerialising the decode step is not ported (ROADMAP.md)")
         if self.compute_dtype is not None:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: only f32 (None) is ported"

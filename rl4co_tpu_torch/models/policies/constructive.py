@@ -8,6 +8,12 @@ The loop is a Python loop with a static trip count (``env.max_steps``) and
 done-masking. Multistart (POMO) and multi-sample expansion keep the decoder
 cache **untiled** ``[B, ...]``: the repeats of an instance become a query
 axis that shares one K/V load, and the encoder never runs per start.
+
+Whether a rollout records an autograd graph follows the ambient grad mode,
+as everywhere in PyTorch: the loss of a training step calls `rollout` with
+gradients enabled (encoder, `precompute` and every decode step are then
+recorded); everything that only needs tours or rewards (`evaluate_policy`,
+a baseline's greedy rollout, validation) calls it under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -78,7 +84,9 @@ def rollout(
     replay_actions: Optional[torch.Tensor] = None,
     device="cuda",
 ) -> RolloutOutput:
-    """Full autoregressive rollout, without gradients.
+    """Full autoregressive rollout. Under `torch.no_grad()` it records no
+    graph; with gradients enabled ``log_likelihood``, ``logprobs`` and
+    ``entropy`` carry the graph back to the policy's parameters.
 
     Args:
         instances: batched instance dict ``[B, ...]`` (numpy or tensors).
@@ -98,10 +106,9 @@ def rollout(
     instances = instances_to_device(instances, device)
     if replay_actions is not None:
         replay_actions = torch.as_tensor(replay_actions).to(device)
-    with torch.no_grad():
-        cache = policy.precompute(policy.encode(instances))
-        return rollout_from_cache(policy, env, instances, cache, spec,
-                                  generator, replay_actions)
+    cache = policy.precompute(policy.encode(instances))
+    return rollout_from_cache(policy, env, instances, cache, spec,
+                              generator, replay_actions)
 
 
 def rollout_from_cache(
@@ -129,35 +136,34 @@ def rollout_from_cache(
     state = env.reset(instances)
     actions, logprobs_chosen = [], []
     entropy = torch.zeros_like(state.done, dtype=torch.float32)
-    with torch.no_grad():
-        for t in range(env.max_steps):
-            mask = env.action_mask(state)
-            logits = policy.decode_step(cache, state, mask, num_repeats)
-            logprobs = process_logits_spec(logits.float(), mask, spec)
-            replay_t = replay_actions[:, t] if replay_actions is not None else None
-            action, logprob = decode_action(logprobs, mask, spec, generator, replay_t)
-            if first_actions is not None and t == 0:
-                action = first_actions
-                logprob = torch.zeros_like(logprob)
-            # steps after done contribute nothing
-            probs = logprobs.exp()
-            step_entropy = -torch.where(probs > 0, probs * logprobs, 0.0).sum(dim=-1)
-            logprobs_chosen.append(torch.where(state.done, 0.0, logprob))
-            entropy = entropy + torch.where(state.done, 0.0, step_entropy)
-            actions.append(action)
-            state = env.step(state, action)
+    for t in range(env.max_steps):
+        mask = env.action_mask(state)
+        logits = policy.decode_step(cache, state, mask, num_repeats)
+        logprobs = process_logits_spec(logits.float(), mask, spec)
+        replay_t = replay_actions[:, t] if replay_actions is not None else None
+        action, logprob = decode_action(logprobs, mask, spec, generator, replay_t)
+        if first_actions is not None and t == 0:
+            action = first_actions
+            logprob = torch.zeros_like(logprob)
+        # steps after done contribute nothing
+        probs = logprobs.exp()
+        step_entropy = -torch.where(probs > 0, probs * logprobs, 0.0).sum(dim=-1)
+        logprobs_chosen.append(torch.where(state.done, 0.0, logprob))
+        entropy = entropy + torch.where(state.done, 0.0, step_entropy)
+        actions.append(action)
+        state = env.step(state, action)
 
-        actions = torch.stack(actions, dim=1)            # [B', T]
-        logprobs_chosen = torch.stack(logprobs_chosen, dim=1)
-        out = RolloutOutput(
-            reward=env.reward(state, actions),
-            log_likelihood=get_log_likelihood(logprobs_chosen),
-            actions=actions,
-            logprobs=logprobs_chosen,
-            entropy=entropy,
-        )
-        if num_repeats > 1 and spec.select_best:
-            out = select_best(out, num_repeats)
+    actions = torch.stack(actions, dim=1)            # [B', T]
+    logprobs_chosen = torch.stack(logprobs_chosen, dim=1)
+    out = RolloutOutput(
+        reward=env.reward(state, actions),
+        log_likelihood=get_log_likelihood(logprobs_chosen),
+        actions=actions,
+        logprobs=logprobs_chosen,
+        entropy=entropy,
+    )
+    if num_repeats > 1 and spec.select_best:
+        out = select_best(out, num_repeats)
     return out
 
 

@@ -114,3 +114,23 @@ class AttentionModelPolicy(ConstructivePolicy):
         mask_g = mask.reshape(g, b, n).transpose(0, 1)           # [B, g, N]
         logits = self.pointer(query_g, gk, gv, lk, mask_g)       # [B, g, N]
         return logits.transpose(0, 1).reshape(g * b, n)
+
+
+def AttentionModel(
+    env,
+    policy: AttentionModelPolicy | None = None,
+    baseline="rollout",
+    policy_kwargs: dict | None = None,
+    **kwargs,
+):
+    """The Attention Model (Kool et al. 2019): AM policy + REINFORCE with a
+    greedy rollout baseline. Convenience constructor; returns a `REINFORCE`
+    algorithm. The policy is built on ``"cuda"`` unless
+    ``policy_kwargs["device"]`` says otherwise, and the algorithm runs where
+    its policy lives.
+    """
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    if policy is None:
+        policy = AttentionModelPolicy(env_name=env.name, **(policy_kwargs or {}))
+    return REINFORCE(env=env, policy=policy, baseline=baseline, **kwargs)

@@ -31,11 +31,26 @@ never reach device memory. Measured times stand in PERF.md.
 
 On a CPU tensor the wrapper computes the plain version. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
+
+Gradient. The launch sits inside a `torch.autograd.Function`
+(`_PointerLogits`), the counterpart of the `jax.custom_vjp` at
+`rl4co_tpu/ops/pointer_kernel.py:326-368`. Its backward mirrors `_bwd`
+(`:349-365`), which is no Pallas kernel either: it recomputes the plain
+version on the detached saved inputs under `torch.enable_grad()` and takes
+that graph's gradients of ``q``, ``k``, ``v``, ``lk`` and ``w_out``
+(``neg_bias`` and ``num_heads`` get none). The backward is therefore not a
+kernel, on the card as on the CPU, so nothing in it can fall back; CPU and
+CUDA tensors go through the same `Function`, and the forward alone differs
+(plain version against kernel). The inputs are saved by reference: ``k``,
+``v`` and ``lk`` are the same three tensors at every decode step of a
+rollout. For a 3-D ``q`` the gradients of ``k``, ``v`` and ``lk`` sum over
+the L queries inside the recompute.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 MASK_VALUE = -1e9
 
@@ -96,7 +111,7 @@ def _check_shapes(q, k, v, lk, neg_bias, w_out, num_heads):
 
 
 def fused_pointer_logits(q, k, v, lk, neg_bias, w_out, num_heads: int) -> torch.Tensor:
-    """Fused decode-step logits.
+    """Fused decode-step logits, differentiable in q, k, v, lk and w_out.
 
     Args:
         q: [B, D] single query or [B, L, D] grouped queries (already
@@ -109,37 +124,71 @@ def fused_pointer_logits(q, k, v, lk, neg_bias, w_out, num_heads: int) -> torch.
     CUDA tensors: checks device, type, shape and contiguity, launches
     ``pointer_step_single`` (2-D q) or ``pointer_step_grouped`` (3-D q) on the
     current stream and raises on anything the kernel does not take or on a
-    refused launch. CPU tensors: the plain version.
+    refused launch. CPU tensors: the plain version. Either way the call is
+    recorded for autograd when an input requires a gradient; the backward is
+    the recompute described in the module's docstring.
     """
     tensors = {"q": q, "k": k, "v": v, "lk": lk, "neg_bias": neg_bias, "w_out": w_out}
     b, l, n, d = _check_shapes(q, k, v, lk, neg_bias, w_out, num_heads)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.device.type == "cpu":
-        return pointer_logits_plain(q, k, v, lk, neg_bias, w_out, num_heads)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_pointer_logits runs on cuda or cpu, not {q.device}")
+    if q.device.type == "cuda":
+        for name, t in tensors.items():
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} is {t.dtype}: the kernel takes float32 only")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} {tuple(t.shape)} is not contiguous "
+                                 f"(strides {t.stride()})")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
+        if b < 1 or l < 1 or n < 1:
+            raise ValueError(f"empty problem: B={b}, L={l}, N={n}")
+    return _PointerLogits.apply(q, k, v, lk, neg_bias, w_out, num_heads)
 
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}: the kernel takes float32 only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} {tuple(t.shape)} is not contiguous "
-                             f"(strides {t.stride()})")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            "the pointer kernel has no backward yet: call under torch.no_grad()"
-        )
-    if b < 1 or l < 1 or n < 1:
-        raise ValueError(f"empty problem: B={b}, L={l}, N={n}")
+
+class _PointerLogits(torch.autograd.Function):
+    """Forward: the kernel (CUDA tensors) or the plain version (CPU tensors).
+    Backward: gradients of the recomputed plain version, as `_bwd` of the JAX
+    package does it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lk, neg_bias, w_out, num_heads):
+        ctx.save_for_backward(q, k, v, lk, neg_bias, w_out)  # references, no copies
+        ctx.num_heads = num_heads
+        if q.device.type == "cpu":
+            return pointer_logits_plain(q, k, v, lk, neg_bias, w_out, num_heads)
+        return _launch(q, k, v, lk, neg_bias, w_out, num_heads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, lk, neg_bias, w_out = ctx.saved_tensors
+        # q, k, v, lk, w_out: positions 0-3 and 5 of forward's arguments
+        needs = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
+        if not any(needs):  # only neg_bias asked for a gradient, and it gets none
+            return (None,) * 7
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip((q, k, v, lk, w_out), needs)]
+        with torch.enable_grad():
+            out = pointer_logits_plain(*leaves[:4], neg_bias, leaves[4], ctx.num_heads)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+        dq, dk, dv, dlk, dw = (next(grads) if need else None for need in needs)
+        return dq, dk, dv, dlk, None, dw, None
+
+
+def _launch(q, k, v, lk, neg_bias, w_out, num_heads: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA tensors; raises on a refused launch."""
+    b, n, d = k.shape
+    single = q.ndim == 2
+    l = 1 if single else q.shape[1]
 
     from rl4co_tpu_torch.ops._build import load_library
 
     lib = load_library("pointer_kernel")
-    single = q.ndim == 2
     name = "pointer_step_single" if single else "pointer_step_grouped"
     with torch.cuda.device(q.device):
         need = getattr(lib, name + "_smem_bytes")(n, d, num_heads)

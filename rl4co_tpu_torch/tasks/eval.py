@@ -125,7 +125,8 @@ def evaluate_policy(
         batch = {k: v.to(device) for k, v in batch.items()}
         if a > 1:
             batch = augment_instances(batch, a, m.augment_fn, generator=generator)
-        out = rollout(policy, env, batch, spec, generator=generator, device=device)
+        with torch.no_grad():  # tours and rewards only: no graph
+            out = rollout(policy, env, batch, spec, generator=generator, device=device)
         r, acts = out.reward, (out.actions if return_actions else None)
         # repeats first, then augments
         if repeats > 1:

@@ -42,7 +42,9 @@ def test_the_port_has_the_modules_of_the_slice():
                  "models/nn/graph/attnnet.py", "models/nn/env_embeddings/init.py",
                  "models/nn/env_embeddings/context.py", "ops/pointer_kernel.py",
                  "ops/_build.py", "decoding.py", "models/policies/constructive.py",
-                 "models/zoo/am.py", "tasks/eval.py", "convert.py"):
+                 "models/zoo/am.py", "tasks/eval.py", "convert.py",
+                 "rl/baselines.py", "rl/reinforce.py", "utils/optim.py", "checkpoint.py",
+                 "trainer.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     assert os.path.exists(os.path.join(PKG, "csrc", "pointer_kernel.cu"))
 
@@ -84,6 +86,7 @@ def test_entry_points_refuse_to_run_without_a_card():
     from rl4co_tpu_torch.decoding import DecodeSpec
     from rl4co_tpu_torch.envs import get_env
     from rl4co_tpu_torch.models import AttentionModelPolicy, rollout
+    from rl4co_tpu_torch.models.zoo.am import AttentionModel
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
     if torch.cuda.is_available():
@@ -94,6 +97,8 @@ def test_entry_points_refuse_to_run_without_a_card():
     env = get_env("tsp", num_loc=5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         env.generate(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AttentionModel(env, policy_kwargs=small)  # the trainer's algorithm, too
     policy = AttentionModelPolicy(device="cpu", **small)
     inst = {"locs": np.random.RandomState(0).rand(2, 5, 2).astype(np.float32)}
     with pytest.raises(RuntimeError, match="device='cpu'"):

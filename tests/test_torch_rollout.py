@@ -120,11 +120,41 @@ def test_select_best_takes_the_best_repeat():
 
 
 def test_rollout_builds_no_graph_and_refuses_beam_search():
+    """The graph follows the ambient grad mode: none under `torch.no_grad()`
+    or with frozen parameters, one back to every parameter otherwise; the
+    entry points that only need tours (`evaluate_policy`) build none."""
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
     _, _, tpol = policy_pair()
+    tpol.requires_grad_(True)
     env = get_env("tsp", num_loc=N)
-    out = rollout(tpol, env, {"locs": random_locs(0, 2, N)},
-                  DecodeSpec(kind="greedy"), device="cpu")
+    inst = {"locs": random_locs(0, 2, N)}
+    with torch.no_grad():
+        out = rollout(tpol, env, inst, DecodeSpec(kind="greedy"), device="cpu")
     assert not out.reward.requires_grad and not out.log_likelihood.requires_grad
+    assert out.log_likelihood.grad_fn is None and out.entropy.grad_fn is None
+
+    for spec in (DecodeSpec(kind="sampling", tanh_clipping=10.0),
+                 DecodeSpec(kind="sampling", tanh_clipping=10.0, multistart=True,
+                            num_starts=N)):
+        out = rollout(tpol, env, inst, spec, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+        assert out.log_likelihood.requires_grad and out.logprobs.requires_grad
+        assert out.entropy.requires_grad
+        assert not out.reward.requires_grad and not out.actions.requires_grad
+        tpol.zero_grad()
+        out.log_likelihood.sum().backward()  # no in-place write on a recorded tensor
+        for name, p in tpol.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    if spec.multistart:  # the forced first step has log-probability 0 and no graph
+        assert (out.logprobs[:, 0] == 0).all()
+
+    res = evaluate_policy(env, tpol, inst, "sampling", num_samples=3, device="cpu",
+                          warmup=False, return_actions=True)
+    assert res["rewards"].shape == (2,)  # numpy: nothing recorded reaches the caller
+
+    tpol.requires_grad_(False)
+    out = rollout(tpol, env, inst, DecodeSpec(kind="greedy"), device="cpu")
+    assert not out.log_likelihood.requires_grad
     with pytest.raises(NotImplementedError):
-        rollout(tpol, env, {"locs": random_locs(0, 2, N)},
-                DecodeSpec(kind="beam_search"), device="cpu")
+        rollout(tpol, env, inst, DecodeSpec(kind="beam_search"), device="cpu")
