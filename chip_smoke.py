@@ -6,12 +6,16 @@ its plain PyTorch version on the card, drives the port's two main paths at
 full width (the Attention Model evaluated on TSP-50 through `evaluate_policy`
 with and without the kernels; the same model trained with REINFORCE and the
 greedy rollout baseline through `Trainer.fit`, gradients flowing through the
-kernels' `autograd.Function`), and replays the JAX package's golden greedy
-tours. Every phase prints one JSON line; any failure is a traceback and a
-non-zero exit. Without a card it exits non-zero and prints no result.
+kernels' `autograd.Function`), drives `multistart_greedy` on TSP-500 through
+the grouped kernel past its former N limit, and replays the JAX package's
+golden greedy tours. Every phase prints one JSON line; any failure is a
+traceback and a non-zero exit. Without a card it exits non-zero and prints
+no result. `check_kernels` and `time_kernels` also run alone, from a short
+script, while a kernel is being worked on.
 
 Weights are random, made from a seed; evaluation instances are the committed
-`data/tsp/test50_seed1234.npz`, training batches are generated on the card.
+`data/tsp/test50_seed1234.npz`, TSP-500 instances and training batches are
+generated on the card.
 Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 """
 
@@ -69,6 +73,27 @@ CASES = [
     (512, None, 50, 128, 8, 0.7),       # a train step's two rollouts on TSP-50
     (512, None, 20, 128, 8, 0.65),      # ... and on TSP-20
     (64, 50, 50, 128, 8, 0.7),          # a multistart train step
+    # node tiles: past one tile of 64 nodes, past the grouped kernel's old
+    # N <= 207 limit, and long instances
+    (8, 16, 208, 128, 8, 0.7),
+    (4, 5, 500, 64, 4, 0.6),            # tests/test_pointer_kernel.py::test_kernel_large_n_ragged_padding
+    (4, 20, 1000, 128, 8, 0.7),
+    (2, 20, 2048, 128, 8, 0.7),
+    (4, 20, 300, 128, 8, "leading_tiles_masked"),
+    (3, 7, 300, 20, 2, "one_row_all_masked"),
+    (4, None, 2048, 128, 8, 0.7),
+    (4, None, 4096, 128, 8, 0.7),
+    (4, None, 300, 128, 8, "leading_tiles_masked"),
+    (1, None, 50, 128, 8, 0.7),         # one instance: one block
+    (4096, None, 50, 128, 8, 0.7),      # many instances per persistent block
+    (64, None, 50, 256, 8, 0.7),        # W_out too large for shared memory
+    (16, None, 50, 18, 3, 0.7),         # rows not 16-byte aligned
+    (8, None, 130, 18, 3, "one_row_all_masked"),
+]
+# further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
+EXTRA_TIMES = [
+    ("pointer_step_single", (512, None, 50, 128, 8)),    # a train step's rollouts
+    ("pointer_step_grouped", (16, 500, 500, 128, 8)),    # multistart on TSP-500
 ]
 
 
@@ -101,6 +126,12 @@ def make_case(rs, b, l, n, d, h, feasible, device):
         mask = rs.random_sample(mshape) < 0.7
         mask[..., 0] = True
         mask[0] = False  # every query of instance 0 sees no feasible column
+    elif feasible == "leading_tiles_masked":
+        # the first 150 nodes masked: whole node tiles of either kernel (64 or
+        # 32 nodes) and part of the next
+        mask = rs.random_sample(mshape) < 0.7
+        mask[..., :150] = False
+        mask[..., -1] = True
     else:
         mask = rs.random_sample(mshape) < feasible
         mask[..., 0] = True
@@ -193,15 +224,17 @@ def check_kernels(device, cases=CASES, seed=0):
     return stats
 
 
-def time_kernels(device, seed=1):
+def time_kernels(device, seed=1, shapes=None):
+    """Device times of kernel and plain version at ``shapes`` ([(kernel,
+    (B, L, N, D, H))], by default the main path's), beside the bound."""
     from rl4co_tpu_torch.ops.pointer_kernel import (
         fused_pointer_logits,
         pointer_logits_plain,
     )
 
     rs = np.random.RandomState(seed)
-    times = {}
-    for name, (b, l, n, d, h) in MAIN_SHAPES.items():
+    times = []
+    for name, (b, l, n, d, h) in shapes or list(MAIN_SHAPES.items()):
         args = make_case(rs, b, l, n, d, h, 0.7, device)
         # plain, kernel, kernel, plain: the two versions in turns on one card;
         # device times (graph replays), the eager enqueue times beside them
@@ -210,14 +243,14 @@ def time_kernels(device, seed=1):
         k2 = time_ms(lambda: fused_pointer_logits(*args))
         p2 = time_ms(lambda: pointer_logits_plain(*args))
         t_bound, bound_by = bound_ms(b, l, n, d)
-        times[name] = {
-            "shape": {"B": b, "L": l, "N": n, "D": d, "H": h},
+        times.append({
+            "name": name, "shape": {"B": b, "L": l, "N": n, "D": d, "H": h},
             "ms": min(k1, k2), "ms_runs": [k1, k2],
             "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
             "bound_ms": t_bound, "bound_by": bound_by,
             "host_enqueue_us": host_us(lambda: fused_pointer_logits(*args)),
             "plain_host_enqueue_us": host_us(lambda: pointer_logits_plain(*args)),
-        }
+        })
     return times
 
 
@@ -309,6 +342,46 @@ def drive_path(env, policies, locs, device, methods=PATH_METHODS):
         entry["tours_identical"] = same
         report.append(entry)
     return report, total
+
+
+def drive_tsp500(device, count=16, seed=500):
+    """The grouped kernel past its old N <= 207 limit, through the entry
+    point: `evaluate_policy(..., "multistart_greedy")` on ``count`` generated
+    TSP-500 instances (500 starts each, one dispatch), AM at full width with
+    random seeded weights, kernel path against plain path."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    env = get_env("tsp", num_loc=500)
+    inst = env.generate(count, seeded_generator(device, seed), device)
+    policies = make_policies(device)
+    res, launches = {}, None
+    for impl in ("kernel", "plain"):
+        reset_launches()
+        res[impl] = evaluate_policy(env, policies[impl], inst, "multistart_greedy",
+                                    batch_size=count, check_solutions=True, warmup=False,
+                                    device=device)
+        counts = dict(LAUNCHES)
+        want = {name: 0 for name in LAUNCHES}
+        if impl == "kernel":
+            want["pointer_step_grouped"] = env.max_steps  # one per decode step
+            launches = counts
+        assert counts == want, f"TSP-500 {impl}: launches {counts}, expected {want}"
+    rk, rp = res["kernel"], res["plain"]
+    assert np.isfinite(rk["rewards"]).all() and rk["rewards"].shape == (count,)
+    same = int((rk["actions"] == rp["actions"]).all(axis=1).sum())
+    rel = abs(rk["mean_reward"] - rp["mean_reward"]) / abs(rp["mean_reward"])
+    # near-ties of an argmax over 500 starts x 500 steps may flip under
+    # another order of f32 summation: one tour of 16 may differ
+    assert same >= count - 1, f"TSP-500: only {same} of {count} best tours identical"
+    assert rel <= 1e-4, f"TSP-500: mean cost differs by {rel:.2e} relative"
+    return {"method": "multistart_greedy", "num_loc": env.num_loc, "instances": count,
+            "starts": env.get_num_starts(), "mean_cost": -rk["mean_reward"],
+            "mean_cost_plain": -rp["mean_reward"], "mean_cost_rel_err": rel,
+            "tours_identical": same, "seconds": rk["inference_time"],
+            "seconds_plain": rp["inference_time"], "launches": launches}, launches
 
 
 def device_events(fn):
@@ -863,9 +936,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions, then their times
     stats = check_kernels(device)
-    times = time_kernels(device)
+    times = {t["name"]: t for t in time_kernels(device)}
     emit({"phase": "kernels", "card": smi, "rtol": RTOL, "atol": ATOL,
-          "stats": stats, "times": times})
+          "stats": stats, "times": times,
+          "times_further_shapes": time_kernels(device, shapes=EXTRA_TIMES)})
 
     # 4. the main path
     locs = load_instances_npz(os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz"))["locs"]
@@ -875,6 +949,10 @@ def main() -> int:
     report, launches = drive_path(env, policies, locs, device)
     emit({"phase": "path", "card": smi, "model": "AM 128/8/3/512 batch norm, TSP-50",
           "methods": report, "launches": launches})
+
+    report, tsp500_launches = drive_tsp500(device)
+    emit({"phase": "path_tsp500", "card": smi, "model": "AM 128/8/3/512 batch norm, TSP-500",
+          **report})
 
     profiles = [profile_dispatch(env, policies["kernel"], locs, device, m, c)
                 for m, c in (("greedy", 1024), ("multistart_greedy", 256))]
@@ -900,6 +978,8 @@ def main() -> int:
     for name in MAIN_SHAPES:
         for path, counts in by_path.items():
             assert counts[name] > 0, f"{name} was never launched on the {path} path"
+    by_path["evaluation_tsp500"] = tsp500_launches
+    for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,

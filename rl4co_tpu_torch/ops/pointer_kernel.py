@@ -18,16 +18,21 @@ Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores). Bytes
 moved once are ``4·(3·B·N·D + B·L·D + 2·B·L·N + D·D)`` and f32 operations
 ``B·L·(6·N·D + 2·D·D)`` (L = 1 for the single kernel). The single kernel
 does 2 operations per byte and is bound by bytes; the grouped kernel reuses
-K/V/LK across L queries and at L = 50 is bound by operations. The design
-follows: the single kernel streams each instance's K, V and LK straight from
-device memory exactly once (one block per instance, many small blocks in
-flight); the grouped kernel stages K, then V, then LK through one shared
-memory buffer per block of 16 queries, and each of its 256 threads keeps
-the accumulators of 8 queries in registers. Its inner loops are bound by
-loads from shared memory rather than by arithmetic, so they walk the
-reduction axis four floats (one 16-byte load) at a time wherever every
-head starts on a 16-byte boundary. Scores, weights, glimpse and projection
-never reach device memory. Measured times stand in PERF.md.
+K/V/LK across L queries and at L = 50 is bound by operations. Both walk the
+nodes in tiles (32 nodes in the single kernel, 64 in the grouped one) with
+an online softmax (a running max and sum per row, earlier tiles rescaled),
+so shared memory does not grow with N and any N runs. The single kernel
+runs persistent blocks, one per SM at D 128, of four groups of 128
+threads, each group walking its own instances: `W_out` is staged once per
+block in shared memory, and K, V and LK stream through each group's ring of
+node tiles filled by asynchronous copies that run ahead across instance
+boundaries. The grouped kernel stages each tile of K, then V, then LK
+through one shared memory buffer per block of 16 queries, and each of its
+256 threads keeps the accumulators of 8 queries in registers. Its inner loops are bound by loads
+from shared memory rather than by arithmetic, so they walk the reduction
+axis four floats (one 16-byte load) at a time wherever every head starts on
+a 16-byte boundary. Scores, weights, glimpse and projection never reach
+device memory. Measured times stand in PERF.md.
 
 On a CPU tensor the wrapper computes the plain version. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
@@ -191,6 +196,7 @@ def _launch(q, k, v, lk, neg_bias, w_out, num_heads: int) -> torch.Tensor:
     lib = load_library("pointer_kernel")
     name = "pointer_step_single" if single else "pointer_step_grouped"
     with torch.cuda.device(q.device):
+        # past one node tile the need depends on D and H only
         need = getattr(lib, name + "_smem_bytes")(n, d, num_heads)
         have = _MAX_SMEM.get(q.device.index)
         if have is None:
