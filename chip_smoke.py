@@ -8,13 +8,18 @@ with and without the kernels; the same model trained with REINFORCE and the
 greedy rollout baseline through `Trainer.fit`, gradients flowing through the
 kernels' `autograd.Function`), drives `multistart_greedy` on TSP-500 through
 the grouped kernel past its former N limit, and replays the JAX package's
-golden greedy tours. Every phase prints one JSON line; any failure is a
-traceback and a non-zero exit. Without a card it exits non-zero and prints
-no result. `check_kernels` and `time_kernels` also run alone, from a short
-script, while a kernel is being worked on.
+golden greedy tours. It then runs the two trained checkpoints committed under
+`runs/` (exported to `rl4co_tpu_torch/golden/*_params.npz`) over the whole
+canonical test sets, AM on TSP-50 and POMO on CVRP-50, held to the JAX
+package's per-instance costs (`*_costs.npz`), and trains POMO on CVRP-50 at
+full width through the grouped kernel. Every phase prints one JSON line; any
+failure is a traceback and a non-zero exit. Without a card it exits non-zero
+and prints no result. `check_kernels` and `time_kernels` also run alone, from
+a short script, while a kernel is being worked on.
 
-Weights are random, made from a seed; evaluation instances are the committed
-`data/tsp/test50_seed1234.npz`, TSP-500 instances and training batches are
+Weights are random, made from a seed, except the checkpoints'; evaluation
+instances are the committed `data/tsp/test50_seed1234.npz` and
+`data/cvrp/test50_seed1234.npz`, TSP-500 instances and training batches are
 generated on the card.
 Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 """
@@ -22,6 +27,7 @@ Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import statistics
@@ -89,11 +95,27 @@ CASES = [
     (64, None, 50, 256, 8, 0.7),        # W_out too large for shared memory
     (16, None, 50, 18, 3, 0.7),         # rows not 16-byte aligned
     (8, None, 130, 18, 3, "one_row_all_masked"),
+    # POMO on CVRP-50: N 51 (depot + 50) is one node tile of 64 with a ragged
+    # tail; a train step's rollout, the dihedral-8 dispatch (81 x 8), the
+    # multistart greedy dispatch, under random masks and under masks of the
+    # capacity rule's kind
+    (64, 50, 51, 128, 8, 0.7),
+    (648, 50, 51, 128, 8, 0.7),
+    (64, 50, 51, 128, 8, "cvrp_like"),
+    (655, 50, 51, 128, 8, "cvrp_like"),
+    (512, 50, 51, 128, 8, "cvrp_like"),  # train_pomo's validation: 64 x 8 augments
+    # the AM checkpoint's dispatches on TSP-50: greedy, and dihedral-8 (3799 x 8)
+    (8192, None, 50, 128, 8, 0.7),
+    (30392, None, 50, 128, 8, 0.7),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
     ("pointer_step_single", (512, None, 50, 128, 8)),    # a train step's rollouts
+    ("pointer_step_single", (8192, None, 50, 128, 8)),   # the AM checkpoint's greedy dispatch
     ("pointer_step_grouped", (16, 500, 500, 128, 8)),    # multistart on TSP-500
+    ("pointer_step_grouped", (64, 50, 51, 128, 8)),      # a POMO train step on CVRP-50
+    ("pointer_step_grouped", (655, 50, 51, 128, 8)),     # ... its multistart greedy dispatch
+    ("pointer_step_grouped", (648, 50, 51, 128, 8)),     # ... and with dihedral-8 (81 x 8)
 ]
 
 
@@ -132,6 +154,14 @@ def make_case(rs, b, l, n, d, h, feasible, device):
         mask = rs.random_sample(mshape) < 0.7
         mask[..., :150] = False
         mask[..., -1] = True
+    elif feasible == "cvrp_like":
+        # CVRP's mask: the depot (column 0) masked and most customers masked
+        # (visited or beyond the remaining capacity); a query with no customer
+        # left, and a fifth of the others (finished routes), see the depot alone
+        mask = rs.random_sample(mshape) < 0.1
+        mask[..., 0] = False
+        depot_only = ~mask.any(axis=-1) | (rs.random_sample(mshape[:-1]) < 0.2)
+        mask[depot_only] = np.arange(n) == 0
     else:
         mask = rs.random_sample(mshape) < feasible
         mask[..., 0] = True
@@ -428,22 +458,26 @@ def device_profile(fn):
     return result, busy_ms, len(kernels), top_kernels([(k, d) for k, _, d in kernels], 6)
 
 
-def profile_dispatch(env, policy, locs, device, method, count):
-    """One dispatch timed plainly, then again under `torch.profiler`: the
-    time the device was busy (sum over its kernels), launches, and the
-    kernels that took most of the device's time. The busy share is taken
-    against the wall time without the profiler, which slows the host."""
+def profile_dispatch(env, policy, instances, device, method, count):
+    """One dispatch of the first ``count`` of ``instances`` timed plainly,
+    then again under `torch.profiler`: the time the device was busy (sum over
+    its kernels), launches, and the kernels that took most of the device's
+    time. The busy share is taken against the wall time without the
+    profiler, which slows the host."""
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
+    batch = {k: v[:count] for k, v in instances.items()}
+
     def run():
-        return evaluate_policy(env, policy, {"locs": locs[:count]}, method,
-                               batch_size=count, warmup=False, device=device)
+        return evaluate_policy(env, policy, batch, method, batch_size=count,
+                               warmup=False, device=device)
 
     run()
     wall_ms = run()["inference_time"] * 1e3
     res, busy_ms, launches, top = device_profile(run)
     return {
         "method": method, "instances": count, "wall_ms": wall_ms,
+        "instances_per_s": count / wall_ms * 1e3,   # one dispatch, no validity check
         "wall_ms_under_profiler": res["inference_time"] * 1e3,
         "device_busy_ms": busy_ms,
         "device_busy_share": None if busy_ms is None else busy_ms / wall_ms,
@@ -481,6 +515,120 @@ def check_golden(env, policy, locs, device, path=None):
     same = int((greedy.actions.cpu().numpy() == actions).all(axis=1).sum())
     return {"instances": n, "log_likelihood_max_abs_err": ll_err,
             "cost_max_rel_err": cost_rel, "greedy_tours_reproduced": same}
+
+
+# ------------------------------------------------------ committed checkpoints
+
+GOLDEN = os.path.join(ROOT, "rl4co_tpu_torch", "golden")
+# name -> env, test set, eval methods, the port's policy builder (module,
+# name; called with ``env_name``), the pointer kernel its decode launches, the
+# TPU run's artifact, and the tolerances. ``reference_instances``: how many
+# instances the exported CPU reference costs cover, over which the mean is
+# held within ``mean_rtol``; where ``same_share`` is set, that share of the
+# per-instance costs must lie within ``cost_rtol``; where ``tpu_rtol`` is set,
+# each mean over all 10 000 within it of the TPU run's artifact, a check that
+# the model is the trained one, not of rounding (else the artifact is printed
+# for information). AM (batch norm) is held at the reference's dispatch sizes
+# over all 10 000 instances; POMO (instance norm, no dispatch dependence) on
+# the reference's first 1 000.
+CHECKPOINTS = {
+    "am_tsp50": dict(
+        env="tsp", data="data/tsp/test50_seed1234.npz",
+        methods=("greedy", "augment_dihedral_8"),
+        policy=("rl4co_tpu_torch.models", "AttentionModelPolicy"),
+        kernel="pointer_step_single", artifact="runs/am_tsp50_canonical_reeval.json",
+        reference_instances=10_000, mean_rtol=1e-4, cost_rtol=None, same_share=None,
+        tpu_rtol=None),
+    "pomo_cvrp50": dict(
+        env="cvrp", data="data/cvrp/test50_seed1234.npz",
+        methods=("multistart_greedy", "multistart_greedy_augment_dihedral_8"),
+        policy=("rl4co_tpu_torch.models.zoo.pomo", "make_pomo_policy"),
+        kernel="pointer_step_grouped", artifact="runs/pomo_cvrp50_canonical_reeval.json",
+        reference_instances=1_000, mean_rtol=1e-5, cost_rtol=1e-4, same_share=0.99,
+        tpu_rtol=1e-3),
+}
+TOLERANCE_KEYS = ("reference_instances", "mean_rtol", "cost_rtol", "same_share", "tpu_rtol")
+
+
+def checkpoint_policy(name, device):
+    """The committed checkpoint ``name``, exported as a flat npz, in the
+    port's policy on ``device`` (the kernel path)."""
+    from rl4co_tpu_torch.convert import load_params, load_params_npz
+
+    spec = CHECKPOINTS[name]
+    module, builder = spec["policy"]
+    policy = getattr(importlib.import_module(module), builder)(env_name=spec["env"],
+                                                                device=device)
+    tree = load_params_npz(os.path.join(GOLDEN, f"{name}_params.npz"))
+    return load_params(policy, tree).eval()
+
+
+def drive_checkpoint(name, device):
+    """Every method of ``name`` over the whole canonical test set through
+    `evaluate_policy` with `check_solutions`, at the reference's dispatch
+    sizes; per-instance costs against the exported CPU reference. Returns
+    the report and the pointer kernels' launches (counted from 0 here)."""
+    from rl4co_tpu_torch.data.io import load_reference_npz
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    spec = CHECKPOINTS[name]
+    env = get_env(spec["env"], num_loc=50)
+    test = load_reference_npz(os.path.join(ROOT, spec["data"]), spec["env"])
+    n = len(test["locs"])
+    assert n == 10_000, n
+    policy = checkpoint_policy(name, device)
+    kernel = spec["kernel"]
+    with open(os.path.join(ROOT, spec["artifact"])) as f:
+        tpu = json.load(f)["eval"]
+    report, total = {}, {k: 0 for k in LAUNCHES}
+    with np.load(os.path.join(GOLDEN, f"{name}_costs.npz")) as ref_file:
+        reference = {k: ref_file[k] for k in ref_file.files}
+    for method in spec["methods"]:
+        ref, dispatch = reference[method], int(reference[method + "/dispatch"])
+        reset_launches()
+        res = evaluate_policy(env, policy, test, method, batch_size=dispatch,
+                              check_solutions=True, device=device)
+        counts = dict(LAUNCHES)
+        # one launch per decode step of every dispatch, the warm-up's included
+        want = {k: 0 for k in LAUNCHES}
+        want[kernel] = (-(-n // dispatch) + 1) * env.max_steps
+        assert counts == want, f"{name}/{method}: launches {counts}, expected {want}"
+        for k in total:
+            total[k] += counts[k]
+        cost = -res["rewards"]
+        assert cost.shape == (n,) and np.isfinite(cost).all(), (name, method)
+        m = len(ref)
+        assert m == spec["reference_instances"], (name, method, m)
+        rel = np.abs(cost[:m] - ref) / ref
+        mean, ref_mean = float(cost[:m].mean()), float(ref.mean())
+        mean_rel = abs(mean - ref_mean) / ref_mean
+        entry = {
+            "dispatch": dispatch, "instances": n, "mean_cost": float(cost.mean()),
+            "reference_instances": m, "mean_cost_on_reference": mean,
+            "reference_mean_cost": ref_mean, "mean_rel_err": mean_rel,
+            "share_equal_1e-5": float((rel <= 1e-5).mean()),
+            "share_equal_1e-4": float((rel <= 1e-4).mean()),
+            "max_rel_err": float(rel.max()),
+            "tpu_mean_cost": tpu[method]["mean_cost"],
+            "tpu_mean_rel_err": abs(float(cost.mean()) - tpu[method]["mean_cost"])
+                                / tpu[method]["mean_cost"],
+            # the sweep's time holds `check_solutions`, a Python check of every
+            # tour on the host: not a serving rate (that is `profile*`'s)
+            "instances_per_s_with_validity_check": res["instances_per_s"],
+            "seconds_with_validity_check": res["inference_time"],
+            "warmup_s": res["warmup_s"], "launches": counts,
+        }
+        assert mean_rel <= spec["mean_rtol"], f"{name}/{method}: mean off by {mean_rel:.2e}"
+        if spec["same_share"] is not None:
+            same = float((rel <= spec["cost_rtol"]).mean())
+            assert same >= spec["same_share"], (name, method, entry)
+        if spec["tpu_rtol"] is not None:
+            assert entry["tpu_mean_rel_err"] <= spec["tpu_rtol"], (
+                f"{name}/{method}: {entry['tpu_mean_rel_err']:.2e} from the TPU's mean")
+        report[method] = entry
+    return report, total
 
 
 # ---------------------------------------------------------------- training
@@ -620,6 +768,13 @@ def check_training_gradients(env, device, batch=64):
     assert torch.equal(out_p.actions, out_k.actions)
     env.check_solution_validity({}, out_k.actions)
 
+    return {"batch": batch, **compare_gradients(live, loss_k, loss_p)}
+
+
+def compare_gradients(live, loss_k, loss_p):
+    """Loss and every parameter's gradient of the kernel-path policy against
+    the plain-path one's (same weights, same actions), at LOSS_RTOL and
+    GRAD_RTOL / GRAD_ATOL."""
     lk, lp = loss_k.item(), loss_p.item()
     assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
     grads_p = {n: p.grad for n, p in live["plain"].named_parameters()}
@@ -635,7 +790,7 @@ def check_training_gradients(env, device, batch=64):
                            f"max abs err {err.max().item():.3e} at scale {scale:.3e}")
         if err.max().item() > worst_abs:
             worst_abs, worst_name = err.max().item(), name
-    return {"batch": batch, "loss_kernel": lk, "loss_plain": lp,
+    return {"loss_kernel": lk, "loss_plain": lp,
             "loss_rel_err": abs(lk - lp) / abs(lp), "grad_scale": scale,
             "grad_max_abs_err": worst_abs, "grad_max_abs_err_at": worst_name,
             "grad_max_err_over_scale": worst_abs / scale,
@@ -904,6 +1059,99 @@ def train_resumes(device, num_loc=20, batch=64, steps_per_epoch=2):
             "rtol": 1e-4, "steps_before_the_compared_one": resumed.step - 1}
 
 
+def pomo_algorithm(env, device, seed, pointer_impl="kernel"):
+    """`POMO(env)` at full width (6 layers, 128/8/512, instance norm) with
+    weights from ``torch.manual_seed(seed)``, as the checkpoint was trained:
+    multistart sampling with tanh clipping 10, AdamW (`runs/train_quality.py`,
+    preset pomo_cvrp50)."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.zoo.pomo import POMO
+
+    torch.manual_seed(seed)
+    return POMO(env, policy_kwargs=dict(pointer_impl=pointer_impl, device=device),
+                train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0),
+                optimizer="adamw")
+
+
+def check_pomo_gradients(env, device, batch=64):
+    """The kernel-path POMO samples under grad (100 grouped launches); the
+    plain-path one, same weights, replays its actions. Loss and every
+    parameter's gradient must agree, at the tolerances of AM's check."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+
+    algos = {impl: pomo_algorithm(env, device, seed=7, pointer_impl=impl)
+             for impl in ("kernel", "plain")}
+    live = {impl: a.policy for impl, a in algos.items()}
+    assert all(torch.equal(p, q) for p, q in zip(live["kernel"].parameters(),
+                                                 live["plain"].parameters()))
+    inst = env.generate(batch, seeded_generator(device, 31), device)
+    algos["kernel"].reseed(32)
+    reset_launches()
+    loss_k, (_, out_k) = algos["kernel"].loss(inst)
+    loss_k.backward()
+    assert dict(LAUNCHES) == {"pointer_step_single": 0,
+                              "pointer_step_grouped": env.max_steps}, dict(LAUNCHES)
+    reset_launches()
+    loss_p, (_, out_p) = algos["plain"].loss(inst, replay_actions=out_k.actions)
+    loss_p.backward()
+    assert sum(LAUNCHES.values()) == 0, dict(LAUNCHES)
+    assert torch.equal(out_p.actions, out_k.actions)
+    env.check_solution_validity({"demand": inst["demand"].repeat(env.get_num_starts(), 1)},
+                                out_k.actions)
+    return {"batch": batch, "starts": algos["kernel"].num_starts,
+            **compare_gradients(live, loss_k, loss_p)}
+
+
+def train_pomo(env, locs_depot_demand, device, batch=64, steps=4, val=64):
+    """POMO on CVRP-50 at full width through `Trainer.fit()`: one epoch of
+    ``steps`` train steps at ``batch`` x 50 starts, validation (multistart
+    greedy on dihedral-8) on committed instances; then one more step under
+    the profiler. Launch counts start at 0 here and are read after `fit`."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.trainer import Trainer, TrainerConfig
+
+    algo = pomo_algorithm(env, device, seed=1234)
+    assert algo.policy.pointer.impl == "kernel" and algo.policy.num_encoder_layers == 6
+    before = [p.detach().clone() for p in algo.policy.parameters()]
+    step_ms, step_launches = timed_steps(algo)
+    logged = []
+    trainer = Trainer(algo, TrainerConfig(
+        epochs=1, batch_size=batch, train_data_size=steps * batch, val_data_size=val,
+        val_batch_size=val, seed=1234, log_every=1), logger=logged.append)
+    reset_launches()
+    trainer.fit(val_datasets={"cvrp50": {k: v[:val] for k, v in locs_depot_demand.items()}})
+    launches = dict(LAUNCHES)
+    per_rollout = {"pointer_step_single": 0, "pointer_step_grouped": env.max_steps}
+    assert algo.step == steps and step_launches == [per_rollout] * steps, step_launches
+    # + one validation rollout (val instances x 8 augments as the batch)
+    assert launches == {"pointer_step_single": 0,
+                        "pointer_step_grouped": (steps + 1) * env.max_steps}, launches
+    losses = [r["loss"] for r in logged if "loss" in r]
+    assert len(losses) == steps and all(np.isfinite(x) and x != 0.0 for x in losses), losses
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(algo.policy.parameters(), before))
+    assert moved > 1e-5 and all(torch.isfinite(p).all() for p in algo.policy.parameters())
+    rec = trainer.history[-1]
+    assert rec["val/cvrp50/max_aug_reward"] >= rec["val/cvrp50/max_reward"] >= rec["val/cvrp50/reward"]
+    _, busy_ms, device_launches, top = device_profile(lambda: algo.train_step(batch))
+    median = statistics.median(step_ms[:steps])
+    return {
+        "model": "POMO 128/8/6/512 instance norm, CVRP-50, 50 starts, AdamW 1e-4",
+        "batch": batch, "starts": algo.num_starts, "steps": steps,
+        "step_ms_median": median, "step_ms_runs": step_ms[:steps],
+        "instances_per_s": batch / median * 1e3,
+        "profiled_step": {"wall_ms_under_profiler": step_ms[-1], "device_busy_ms": busy_ms,
+                          "device_busy_share_of_median_step":
+                              None if busy_ms is None else busy_ms / median,
+                          "device_launches": device_launches, "top_kernels": top},
+        "launches_per_rollout": per_rollout, "launches": launches, "losses": losses,
+        "grad_norm_last": algo.optimizer.grad_norm.item(), "max_parameter_change": moved,
+        "val_cost": -rec["val/cvrp50/reward"],
+        "val_cost_best_of_starts_and_augments": -rec["val/cvrp50/max_aug_reward"],
+    }, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -912,7 +1160,7 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     # the port, before anything is printed: without it there is no result
-    from rl4co_tpu_torch.data.io import load_instances_npz
+    from rl4co_tpu_torch.data.io import load_instances_npz, load_reference_npz
     from rl4co_tpu_torch.envs import get_env
     from rl4co_tpu_torch.ops import _build
 
@@ -954,14 +1202,28 @@ def main() -> int:
     emit({"phase": "path_tsp500", "card": smi, "model": "AM 128/8/3/512 batch norm, TSP-500",
           **report})
 
-    profiles = [profile_dispatch(env, policies["kernel"], locs, device, m, c)
+    profiles = [profile_dispatch(env, policies["kernel"], {"locs": locs}, device, m, c)
                 for m, c in (("greedy", 1024), ("multistart_greedy", 256))]
     emit({"phase": "profile", "card": smi, "dispatches": profiles})
 
     # 5. golden
     emit({"phase": "golden", **check_golden(env, policies["kernel"], locs, device)})
 
-    # 6. training: gradients through the kernels, then the trainer's paths
+    # 6. the committed checkpoints on the canonical test sets
+    ckpt_launches = {}
+    for name in CHECKPOINTS:
+        report, ckpt_launches[name] = drive_checkpoint(name, device)
+        emit({"phase": f"ckpt_{name}", "card": smi, "methods": report,
+              "tolerances": {k: CHECKPOINTS[name][k] for k in TOLERANCE_KEYS},
+              "launches": ckpt_launches[name]})
+    cvrp_env = get_env("cvrp", num_loc=50)
+    cvrp = load_reference_npz(os.path.join(ROOT, "data", "cvrp", "test50_seed1234.npz"), "cvrp")
+    pomo = checkpoint_policy("pomo_cvrp50", device)
+    emit({"phase": "profile_pomo", "card": smi, "dispatches": [
+        profile_dispatch(cvrp_env, pomo, cvrp, device, m, c)
+        for m, c in (("multistart_greedy", 655), ("multistart_greedy_augment_dihedral_8", 81))]})
+
+    # 7. training: gradients through the kernels, then the trainer's paths
     emit({"phase": "train", "part": "a", "card": smi,
           "function_gradients": check_function_gradients(device),
           "reinforce_loss_and_gradients": check_training_gradients(env, device)})
@@ -971,6 +1233,10 @@ def main() -> int:
     emit({"phase": "train", "part": "c", "card": smi, **report})
     emit({"phase": "train", "part": "d", "card": smi, **train_learns(device)})
     emit({"phase": "train", "part": "e", "card": smi, **train_resumes(device)})
+    gradients = check_pomo_gradients(cvrp_env, device)
+    report, pomo_launches = train_pomo(cvrp_env, cvrp, device)
+    emit({"phase": "train_pomo", "card": smi, "replayed_loss_and_gradients": gradients,
+          **report})
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -978,7 +1244,12 @@ def main() -> int:
     for name in MAIN_SHAPES:
         for path, counts in by_path.items():
             assert counts[name] > 0, f"{name} was never launched on the {path} path"
+    for name, spec in CHECKPOINTS.items():
+        assert ckpt_launches[name][spec["kernel"]] > 0, f"{name}: {spec['kernel']} never launched"
+    assert pomo_launches["pointer_step_grouped"] > 0
     by_path["evaluation_tsp500"] = tsp500_launches
+    by_path.update({f"evaluation_{name}": counts for name, counts in ckpt_launches.items()})
+    by_path["training_pomo_cvrp50"] = pomo_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({

@@ -15,7 +15,10 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
   use, in `TSPContext`).
 
 `load_params` fills a policy and insists that every leaf is consumed and
-every parameter set. `random_params_numpy` makes a tree of the same
+every parameter set. `save_params_npz` / `load_params_npz` carry a tree
+through a flat npz whose keys are the ``/``-joined paths, which is how the
+trained checkpoints reach a machine without the JAX package
+(`rl4co_tpu_torch/golden/*_params.npz`). `random_params_numpy` makes a tree of the same
 structure from a numpy seed, so that tests, the golden file and the chip
 smoke run share one set of weights without sharing a framework.
 """
@@ -40,6 +43,27 @@ def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
         else:
             flat[path] = np.asarray(val)
     return flat
+
+
+def save_params_npz(tree: dict, path: str) -> None:
+    """Write a nested dict of arrays as a flat npz, keys the ``/``-joined paths."""
+    np.savez(path, **{"/".join(p): a for p, a in _flatten(tree).items()})
+
+
+def load_params_npz(path: str) -> dict:
+    """The nested tree back from a flat npz of `save_params_npz`: what
+    `load_params` takes. Leaves are numpy arrays as stored."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            if leaf in node:
+                raise ValueError(f"{path}: key {key} is stored twice")
+            node[leaf] = data[key]
+    return tree
 
 
 def convert_params(tree: dict) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,9 @@
 """Dataset npz I/O (counterpart of `rl4co_tpu/data/io.py`).
 
 Instance dicts (str -> [B, ...] arrays) round-trip through npz as numpy
-arrays; the entry points move them to the device.
+arrays; the entry points move them to the device. `load_reference_npz` reads
+the reference's generated datasets (the committed `data/*/test*_seed1234.npz`)
+into this package's instance conventions.
 """
 
 from __future__ import annotations
@@ -21,3 +23,31 @@ def save_instances_npz(instances: dict, path: str) -> None:
 def load_instances_npz(path: str) -> dict:
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def load_reference_npz(path: str, env_name: str) -> dict:
+    """Load a dataset generated by the reference, in this package's
+    conventions (float32; CVRP demands normalized by capacity).
+
+    A CVRP/SDVRP file in the reference's format holds integer demands and a
+    per-instance ``capacity``: demands are divided by it. A file whose demands
+    are at most 1 is taken as already normalized and passed as it is. Demands
+    above 1 with no ``capacity`` key raise a ValueError, a deliberate
+    difference: the JAX loader passes them on unnormalized, and against a
+    vehicle capacity of 1 no customer with a demand above 1 can be served."""
+    raw = load_instances_npz(path)
+    if env_name in ("cvrp", "sdvrp"):
+        demand = raw["demand"].astype(np.float32)
+        if demand.max() > 1.0:
+            if "capacity" not in raw:
+                raise ValueError(
+                    f"{path}: demands up to {demand.max()} and no 'capacity' key; "
+                    "integer demands need the capacity to be normalized by")
+            demand = demand / raw["capacity"].astype(np.float32)[:, None]
+        return {
+            "locs": raw["locs"].astype(np.float32),
+            "depot": raw["depot"].astype(np.float32),
+            "demand": demand,
+        }
+    # every other env: floats as float32, the rest as stored
+    return {k: v.astype(np.float32) if v.dtype.kind == "f" else v for k, v in raw.items()}

@@ -1,10 +1,12 @@
 """Environment registry (counterpart of `rl4co_tpu/envs/__init__.py`)."""
 
 from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
+from rl4co_tpu_torch.envs.routing.cvrp import CVRP
 from rl4co_tpu_torch.envs.routing.tsp import TSP
 
 ENV_REGISTRY = {
     "tsp": TSP,
+    "cvrp": CVRP,
 }
 
 

@@ -1,6 +1,8 @@
 """Context (decoder-query) modules per environment (counterpart of
 `rl4co_tpu/models/nn/env_embeddings/context.py`): the decode-step query is
-``project_context(cat(first_node_embedding, current_node_embedding))``.
+``project_context`` of the current node's embedding concatenated with the
+env's state features (TSP: the first node's embedding; CVRP: the remaining
+capacity).
 
 Modules consume ``(node_embs [B, N, D], state)`` with the batched env state.
 """
@@ -13,6 +15,20 @@ from torch import nn
 from rl4co_tpu_torch.utils.ops import gather_by_index
 
 
+def gather_rows(embeddings: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx`` of each instance's node embeddings ``[B, N, D]``.
+
+    ``idx [B]`` gives ``[B, D]``. For grouped decode, a flat repeat-major
+    state ``[g*B]`` reads the untiled embeddings through a ``[B, g]`` index
+    (no g-fold copy of them) and gives ``[g*B, D]``."""
+    b = embeddings.shape[0]
+    if idx.shape[0] == b:
+        return gather_by_index(embeddings, idx)
+    g = idx.shape[0] // b
+    out = gather_by_index(embeddings, idx.reshape(g, b).t())  # [B, g, D]
+    return out.transpose(0, 1).reshape(g * b, -1)
+
+
 class TSPContext(nn.Module):
     """first+current node embeddings; a learned placeholder before the first
     step. The stored ``W_placeholder`` is ~U(0, 2) and is used as
@@ -23,28 +39,32 @@ class TSPContext(nn.Module):
         self.W_placeholder = nn.Parameter(torch.rand(2 * embed_dim) * 2.0)
         self.project_context = nn.Linear(2 * embed_dim, embed_dim, bias=False)
 
-    @staticmethod
-    def _gather(embeddings: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        b = embeddings.shape[0]
-        if idx.shape[0] == b:
-            return gather_by_index(embeddings, idx)
-        # grouped decode: a flat repeat-major state [g*B] reads the untiled
-        # embeddings [B, N, D] through a [B, g] index (no g-fold copy of them)
-        g = idx.shape[0] // b
-        out = gather_by_index(embeddings, idx.reshape(g, b).t())  # [B, g, D]
-        return out.transpose(0, 1).reshape(g * b, -1)
-
     def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
-        first = self._gather(embeddings, state.first_node)      # [B', D]
-        cur = self._gather(embeddings, state.current_node)      # [B', D]
-        ctx = torch.cat([first, cur], dim=-1)                   # [B, 2D]
+        first = gather_rows(embeddings, state.first_node)      # [B', D]
+        cur = gather_rows(embeddings, state.current_node)      # [B', D]
+        ctx = torch.cat([first, cur], dim=-1)                  # [B', 2D]
         is_first = (state.i < 1)[:, None]
         ctx = torch.where(is_first, (self.W_placeholder - 1.0)[None, :], ctx)
         return self.project_context(ctx)
 
 
+class VRPContext(nn.Module):
+    """current node embedding + remaining capacity (demands are normalized,
+    so the vehicle's capacity is 1)."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 1, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        remaining = (1.0 - state.used_capacity)[:, None]
+        return self.project_context(torch.cat([cur, remaining], dim=-1))
+
+
 CONTEXT_EMBEDDING_REGISTRY = {
     "tsp": TSPContext,
+    "cvrp": VRPContext,
 }
 
 

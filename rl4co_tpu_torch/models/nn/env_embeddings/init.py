@@ -20,8 +20,24 @@ class TSPInitEmbedding(nn.Module):
         return self.init_embed(instance["locs"])
 
 
+class VRPInitEmbedding(nn.Module):
+    """Depot (xy) and customers (xy + demand) embedded by two layers; the
+    depot is row 0, as in the env's action indexing."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(3, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        feats = torch.cat([instance["locs"], instance["demand"][..., None]], dim=-1)
+        return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
+    "cvrp": VRPInitEmbedding,
 }
 
 

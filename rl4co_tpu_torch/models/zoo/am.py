@@ -64,7 +64,9 @@ class AttentionModelPolicy(ConstructivePolicy):
         )
         self.context_embedding = env_context_embedding(env_name, embed_dim)
         self.project_node_embeddings = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
-        self.project_fixed_context = nn.Linear(embed_dim, embed_dim, bias=False)
+        # no graph context, no projection of it (the JAX tree has no such leaf)
+        self.project_fixed_context = (
+            nn.Linear(embed_dim, embed_dim, bias=False) if use_graph_context else None)
         self.pointer = PointerAttention(embed_dim, num_heads, impl=pointer_impl)
         self.to(device)
 

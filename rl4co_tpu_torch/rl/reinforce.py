@@ -103,16 +103,21 @@ class REINFORCE:
 
     # ---- loss ----
 
+    def train_rollout(self, instances, replay_actions: Optional[torch.Tensor] = None):
+        """The live policy's rollout under ``train_spec``, recording the graph;
+        with ``replay_actions`` it replays those (``kind="evaluate"``)."""
+        spec = self.train_spec
+        if replay_actions is not None:
+            spec = dataclasses.replace(spec, kind="evaluate")
+        return rollout(self.policy, self.env, instances, spec, generator=self.generator,
+                       replay_actions=replay_actions, device=self.device)
+
     def loss(self, instances, replay_actions: Optional[torch.Tensor] = None):
         """REINFORCE loss of the live policy on ``instances``; records the
         graph. Returns ``(loss, (metrics, rollout output))``; the metrics are
         detached tensors. With ``replay_actions`` the rollout replays those
         actions (``kind="evaluate"``) where it would draw its own."""
-        spec = self.train_spec
-        if replay_actions is not None:
-            spec = dataclasses.replace(spec, kind="evaluate")
-        out = rollout(self.policy, self.env, instances, spec, generator=self.generator,
-                      replay_actions=replay_actions, device=self.device)
+        out = self.train_rollout(instances, replay_actions)
         bl_val, bl_loss = self.baseline.eval(
             self.baseline_state, instances, out.reward, self.greedy_reward_fn())
         advantage = out.reward - bl_val

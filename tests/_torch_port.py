@@ -12,11 +12,15 @@ import numpy as np
 import torch
 
 from rl4co_tpu.models import AttentionModelPolicy as JaxPolicy
+from rl4co_tpu.models.zoo.pomo import make_pomo_policy as jax_make_pomo_policy
 from rl4co_tpu_torch.convert import load_params, random_params_numpy
+from rl4co_tpu_torch.envs.routing.cvrp import default_capacity
 from rl4co_tpu_torch.models import AttentionModelPolicy as TorchPolicy
+from rl4co_tpu_torch.models.zoo.pomo import make_pomo_policy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TSP50_FILE = os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz")
+CVRP50_FILE = os.path.join(ROOT, "data", "cvrp", "test50_seed1234.npz")
 
 # the small size of the port's tests
 SMALL = dict(embed_dim=32, num_heads=4, num_encoder_layers=2, feedforward_hidden=64)
@@ -50,3 +54,44 @@ def policy_pair(seed=0, jax_pointer_impl="xla", torch_pointer_impl="kernel", **d
 
 def random_locs(seed, b, n):
     return np.random.RandomState(seed).random_sample((b, n, 2)).astype(np.float32)
+
+
+def pomo_tree(seed, embed_dim, num_encoder_layers, feedforward_hidden):
+    """A POMO/CVRP ``params`` tree from numpy seeds: AM's encoder with instance
+    norm, the CVRP embeddings, no graph-context projection."""
+    tree = random_params_numpy(seed, embed_dim, num_encoder_layers, feedforward_hidden,
+                               normalization="instance")
+    rs, d = np.random.RandomState(seed + 1), embed_dim
+
+    def dense(fan_in, fan_out, use_bias=True):
+        out = {"kernel": (rs.standard_normal((fan_in, fan_out))
+                          / np.sqrt(fan_in)).astype(np.float32)}
+        if use_bias:
+            out["bias"] = (0.1 * rs.standard_normal(fan_out)).astype(np.float32)
+        return out
+
+    tree["init_embedding"] = {"init_embed_depot": dense(2, d), "init_embed": dense(3, d)}
+    tree["context_embedding"] = {"project_context": dense(d + 1, d, use_bias=False)}
+    del tree["project_fixed_context"]
+    return tree
+
+
+def pomo_pair(seed=0, jax_pointer_impl="xla", torch_pointer_impl="kernel", **dims):
+    """The same seeded weights as (JAX POMO policy, its params, the port's on the CPU)."""
+    dims = {**SMALL, **dims}
+    tree = pomo_tree(seed, dims["embed_dim"], dims["num_encoder_layers"],
+                     dims["feedforward_hidden"])
+    jpol = jax_make_pomo_policy("cvrp", pointer_impl=jax_pointer_impl, **dims)
+    tpol = make_pomo_policy("cvrp", pointer_impl=torch_pointer_impl, device="cpu", **dims)
+    return jpol, tree_to_jax(tree), load_params(tpol, tree).eval()
+
+
+def random_cvrp(seed, b, n):
+    """CVRP instances as numpy arrays: uniform locations and depot, integer
+    demands 1..9 divided by the capacity of the table."""
+    rs = np.random.RandomState(seed)
+    return {
+        "locs": rs.random_sample((b, n, 2)).astype(np.float32),
+        "depot": rs.random_sample((b, 2)).astype(np.float32),
+        "demand": (rs.randint(1, 10, size=(b, n)) / default_capacity(n)).astype(np.float32),
+    }

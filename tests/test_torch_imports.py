@@ -44,7 +44,7 @@ def test_the_port_has_the_modules_of_the_slice():
                  "ops/_build.py", "decoding.py", "models/policies/constructive.py",
                  "models/zoo/am.py", "tasks/eval.py", "convert.py",
                  "rl/baselines.py", "rl/reinforce.py", "utils/optim.py", "checkpoint.py",
-                 "trainer.py"):
+                 "trainer.py", "envs/routing/cvrp.py", "models/zoo/pomo.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     assert os.path.exists(os.path.join(PKG, "csrc", "pointer_kernel.cu"))
 
@@ -87,6 +87,7 @@ def test_entry_points_refuse_to_run_without_a_card():
     from rl4co_tpu_torch.envs import get_env
     from rl4co_tpu_torch.models import AttentionModelPolicy, rollout
     from rl4co_tpu_torch.models.zoo.am import AttentionModel
+    from rl4co_tpu_torch.models.zoo.pomo import POMO
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
     if torch.cuda.is_available():
@@ -99,6 +100,11 @@ def test_entry_points_refuse_to_run_without_a_card():
         env.generate(2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AttentionModel(env, policy_kwargs=small)  # the trainer's algorithm, too
+    cvrp = get_env("cvrp", num_loc=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cvrp.generate(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        POMO(cvrp, policy_kwargs=small)
     policy = AttentionModelPolicy(device="cpu", **small)
     inst = {"locs": np.random.RandomState(0).rand(2, 5, 2).astype(np.float32)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
