@@ -107,6 +107,15 @@ CASES = [
     # the AM checkpoint's dispatches on TSP-50: greedy, and dihedral-8 (3799 x 8)
     (8192, None, 50, 128, 8, 0.7),
     (30392, None, 50, 128, 8, 0.7),
+    # K1's edges: one query (one sub-tile of 8, one logit group of 4), nine
+    # (the last block's one query), 17 with N 65 (a last block of one query,
+    # a last node tile of one node), a single node; one instance at POMO's
+    # shape; node pairs over an odd tile (N 51) in every case at N 51
+    (4, 1, 51, 128, 8, 0.7),
+    (4, 9, 51, 128, 8, "cvrp_like"),
+    (8, 17, 65, 128, 8, 0.7),
+    (2, 3, 1, 128, 8, 0.7),
+    (1, 50, 51, 128, 8, "cvrp_like"),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [

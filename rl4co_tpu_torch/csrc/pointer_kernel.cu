@@ -35,7 +35,9 @@ constexpr int kBarrierFloats = 4;     // W's mbarrier, 8 bytes, padded to 16
 constexpr int kTileL = 16;     // queries per block in the grouped kernel
 constexpr int kGroupedThreads = 256;  // threads per block, grouped kernel
 constexpr int kSubL = 8;       // queries per thread in its scores, glimpse, projection
+constexpr int kScoreNodes = 4;  // nodes per thread in its scores phase
 constexpr int kGroupL = 4;     // queries per thread in its logits phase
+constexpr int kLogitNodes = 2;  // nodes per thread in its logits phase
 constexpr int kGroupedTileN = 64;  // nodes per tile of the grouped kernel
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -519,7 +521,7 @@ pointer_step_single_kernel(const float* __restrict__ q, const float* __restrict_
 // ---------------------------------------------------------------------------
 // Grouped queries. Replaces `_pallas_forward` / `_kernel` of
 // rl4co_tpu/ops/pointer_kernel.py; at L = 50 it is bound by operations.
-// One block per (instance, tile of kTileL queries).
+// One block per (instance, tile of kTileL queries), three blocks per SM.
 // The nodes are walked in tiles of kGroupedTileN: for each tile, its K rows
 // are staged in shared memory and scored, each (query, head) row updates a
 // running max and a running sum (online softmax), the glimpse accumulators
@@ -540,6 +542,19 @@ pointer_step_single_kernel(const float* __restrict__ q, const float* __restrict_
 // the accumulators of kSubL queries in registers inside a tile; between
 // tiles the glimpse accumulators wait in shared memory, so D is not bounded
 // by a register budget.
+//
+// Measured on an H100 (PERF.md), the arithmetic phases and not the staging
+// bind this kernel: with nothing staged it kept 85 % of its time before the
+// register tiles below, and keeps 71 % with them. So the
+// scores and logits phases hold register tiles of queries x nodes: a thread
+// scores kSubL queries against kScoreNodes nodes of one head (each chunk of
+// K feeds kSubL queries, each chunk of q kScoreNodes nodes) and takes the
+// logits of kGroupL queries at kLogitNodes nodes. A thread's nodes are a
+// stride of ceil(nt / nodes) apart, so neighbouring threads read
+// neighbouring rows; a node past the tile reads the tile's last row and is
+// not stored. No sum changes its order. Sub-tiles of kSubL queries and
+// logit groups wholly past the last query are skipped (at L = 50 the last
+// block holds 2 queries: one sub-tile of 8 is computed, not two).
 // Shared memory, TN = min(kGroupedTileN, N), TNP = TN rounded up to 4:
 // stage [TN*(D+C)], q then projection [kTileL*D], glimpse [kTileL*D],
 // weights [kTileL*H*TNP], running max, running sum, rescale [kTileL*H] each.
@@ -584,7 +599,8 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = kGroupedThreads >> 5;
-  constexpr int kSubTiles = kTileL / kSubL;
+  const int nsub = (nl + kSubL - 1) / kSubL;       // sub-tiles that hold a query
+  const int ngroups = (nl + kGroupL - 1) / kGroupL;  // logit groups that hold one
   const int hd = D / H;
   const size_t row0 = (size_t)b * N;
   const size_t qrow0 = (size_t)b * L + l0;
@@ -611,33 +627,49 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
     stage_rows<C>(buf, k + (row0 + n0) * D, nt, D, tid);
     __syncthreads();
 
-    // scores: one thread per (head, node, sub-tile of kSubL queries), the
-    // sub-tile's accumulators in registers
-    for (int p = tid; p < kSubTiles * H * nt; p += kGroupedThreads) {
-      const int sub = p / (H * nt);
-      const int hn = p - sub * H * nt;
-      const int h = hn / nt;
-      const int n = hn - h * nt;
+    // scores: one thread per (sub-tile of kSubL queries, head, kScoreNodes
+    // nodes ns apart), the kSubL x kScoreNodes sums in registers: each chunk
+    // of K feeds kSubL queries and each chunk of q kScoreNodes nodes
+    const int ns = (nt + kScoreNodes - 1) / kScoreNodes;
+    for (int p = tid; p < nsub * H * ns; p += kGroupedThreads) {
+      const int sub = p / (H * ns);
+      const int hi = p - sub * H * ns;
+      const int h = hi / ns;
+      const int i = hi - h * ns;
       const int lb = sub * kSubL;
-      const float* kr = buf + n * DP + h * hd;
       const float* qr = q_s + lb * D + h * hd;
-      float acc[kSubL];
+      const float* kr[kScoreNodes];
 #pragma unroll
-      for (int l = 0; l < kSubL; ++l) acc[l] = 0.f;
+      for (int r = 0; r < kScoreNodes; ++r)  // a node past the tile reads the last row
+        kr[r] = buf + min(i + r * ns, nt - 1) * DP + h * hd;
+      float acc[kSubL][kScoreNodes];
+#pragma unroll
+      for (int l = 0; l < kSubL; ++l)
+#pragma unroll
+        for (int r = 0; r < kScoreNodes; ++r) acc[l][r] = 0.f;
       for (int j = 0; j < hd; j += C) {
-        const Chunk<C> kv = load_chunk<C>(kr + j);
+        Chunk<C> kv[kScoreNodes];
+#pragma unroll
+        for (int r = 0; r < kScoreNodes; ++r) kv[r] = load_chunk<C>(kr[r] + j);
 #pragma unroll
         for (int l = 0; l < kSubL; ++l) {
           const Chunk<C> qv = load_chunk<C>(qr + l * D + j);
 #pragma unroll
-          for (int e = 0; e < C; ++e) acc[l] += qv.v[e] * kv.v[e];
+          for (int r = 0; r < kScoreNodes; ++r)
+#pragma unroll
+            for (int e = 0; e < C; ++e) acc[l][r] += qv.v[e] * kv[r].v[e];
         }
       }
 #pragma unroll
-      for (int l = 0; l < kSubL; ++l) {
-        // rows past the edge hold zeros: they take no part in any softmax
-        s_s[((lb + l) * H + h) * TNP + n] =
-            (lb + l < nl) ? acc[l] * scale + bias_b[(size_t)(lb + l) * N + n0 + n] : 0.f;
+      for (int r = 0; r < kScoreNodes; ++r) {
+        const int n = i + r * ns;
+        if (n >= nt) continue;
+#pragma unroll
+        for (int l = 0; l < kSubL; ++l) {
+          // rows past the edge hold zeros: they take no part in any softmax
+          s_s[((lb + l) * H + h) * TNP + n] =
+              (lb + l < nl) ? acc[l][r] * scale + bias_b[(size_t)(lb + l) * N + n0 + n] : 0.f;
+        }
       }
     }
     __syncthreads();  // the tile's K is no longer needed
@@ -650,7 +682,7 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
     // glimpse: one thread per (sub-tile, d) walks the tile's nodes, starting
     // from the earlier tiles' sum rescaled to the new running max; after the
     // last tile the sum over the running sum is the glimpse
-    for (int t = tid; t < kSubTiles * D; t += kGroupedThreads) {
+    for (int t = tid; t < nsub * D; t += kGroupedThreads) {
       const int lb = (t / D) * kSubL;
       const int d = t % D;
       const int h = d / hd;
@@ -689,7 +721,7 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
 
   // projection: one thread per (sub-tile, j) reads W[d][j] along j; the
   // queries are read no more, so the projection overwrites them
-  for (int t = tid; t < kSubTiles * D; t += kGroupedThreads) {
+  for (int t = tid; t < nsub * D; t += kGroupedThreads) {
     const int lb = (t / D) * kSubL;
     const int j = t % D;
     float acc[kSubL];
@@ -711,7 +743,8 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
   }
   __syncthreads();
 
-  // logits, tile by tile of LK: one thread per (group of kGroupL queries, node)
+  // logits, tile by tile of LK: one thread per (group of kGroupL queries,
+  // kLogitNodes nodes ns apart), the kGroupL x kLogitNodes sums in registers
   const float oscale = 1.f / sqrtf((float)D);
   for (int n0 = 0; n0 < N; n0 += TN) {
     const int nt = min(TN, N - n0);
@@ -720,34 +753,46 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
       stage_rows<C>(buf, lk + (row0 + n0) * D, nt, D, tid);
       __syncthreads();
     }
-    for (int p = tid; p < (kTileL / kGroupL) * nt; p += kGroupedThreads) {
-      const int g = p / nt;
-      const int n = p - g * nt;
-      if (g * kGroupL >= nl) continue;
-      const float* lr = buf + n * DP;
+    const int ns = (nt + kLogitNodes - 1) / kLogitNodes;
+    for (int p = tid; p < ngroups * ns; p += kGroupedThreads) {
+      const int g = p / ns;
+      const int i = p - g * ns;
       const float* prow = q_s + g * kGroupL * D;
-      float acc[kGroupL];
+      const float* lr[kLogitNodes];
 #pragma unroll
-      for (int i = 0; i < kGroupL; ++i) acc[i] = 0.f;
+      for (int r = 0; r < kLogitNodes; ++r)  // a node past the tile reads the last row
+        lr[r] = buf + min(i + r * ns, nt - 1) * DP;
+      float acc[kGroupL][kLogitNodes];
+#pragma unroll
+      for (int a = 0; a < kGroupL; ++a)
+#pragma unroll
+        for (int r = 0; r < kLogitNodes; ++r) acc[a][r] = 0.f;
       for (int d = 0; d < D; d += C) {
-        const Chunk<C> lv = load_chunk<C>(lr + d);
+        Chunk<C> lv[kLogitNodes];
 #pragma unroll
-        for (int i = 0; i < kGroupL; ++i) {
-          const Chunk<C> pv = load_chunk<C>(prow + i * D + d);
+        for (int r = 0; r < kLogitNodes; ++r) lv[r] = load_chunk<C>(lr[r] + d);
 #pragma unroll
-          for (int e = 0; e < C; ++e) acc[i] += pv.v[e] * lv.v[e];
+        for (int a = 0; a < kGroupL; ++a) {
+          const Chunk<C> pv = load_chunk<C>(prow + a * D + d);
+#pragma unroll
+          for (int r = 0; r < kLogitNodes; ++r)
+#pragma unroll
+            for (int e = 0; e < C; ++e) acc[a][r] += pv.v[e] * lv[r].v[e];
         }
       }
 #pragma unroll
-      for (int i = 0; i < kGroupL; ++i) {
-        const int l = g * kGroupL + i;
-        if (l < nl) out_b[(size_t)l * N + n0 + n] = acc[i] * oscale;
+      for (int r = 0; r < kLogitNodes; ++r) {
+        const int n = i + r * ns;
+        if (n >= nt) continue;
+#pragma unroll
+        for (int a = 0; a < kGroupL; ++a) {
+          const int l = g * kGroupL + a;
+          if (l < nl) out_b[(size_t)l * N + n0 + n] = acc[a][r] * oscale;
+        }
       }
     }
   }
 }
-
-// The chunk the grouped kernel walks its reduction axes in: 4 floats where
 
 // The chunk the kernels walk their reduction axes in: 4 floats where every
 // head starts on a 16-byte boundary, else 1.

@@ -25,6 +25,14 @@ def load_instances_npz(path: str) -> dict:
         return {k: data[k] for k in data.files}
 
 
+# envs whose reference files hold fixed keys: only those are kept
+_REFERENCE_KEYS = {
+    "op": ("locs", "depot", "prize", "max_length"),
+    "pctsp": ("locs", "depot", "penalty", "deterministic_prize", "stochastic_prize"),
+    "spctsp": ("locs", "depot", "penalty", "deterministic_prize", "stochastic_prize"),
+}
+
+
 def load_reference_npz(path: str, env_name: str) -> dict:
     """Load a dataset generated by the reference, in this package's
     conventions (float32; CVRP demands normalized by capacity).
@@ -34,7 +42,9 @@ def load_reference_npz(path: str, env_name: str) -> dict:
     are at most 1 is taken as already normalized and passed as it is. Demands
     above 1 with no ``capacity`` key raise a ValueError, a deliberate
     difference: the JAX loader passes them on unnormalized, and against a
-    vehicle capacity of 1 no customer with a demand above 1 can be served."""
+    vehicle capacity of 1 no customer with a demand above 1 can be served.
+    OP and PCTSP/SPCTSP files keep the reference's keys alone; a missing one
+    raises KeyError, as the JAX loader does."""
     raw = load_instances_npz(path)
     if env_name in ("cvrp", "sdvrp"):
         demand = raw["demand"].astype(np.float32)
@@ -49,5 +59,9 @@ def load_reference_npz(path: str, env_name: str) -> dict:
             "depot": raw["depot"].astype(np.float32),
             "demand": demand,
         }
+    # the reference's keys alone, as float32; a missing key raises KeyError
+    keys = _REFERENCE_KEYS.get(env_name)
+    if keys is not None:
+        return {k: raw[k].astype(np.float32) for k in keys}
     # every other env: floats as float32, the rest as stored
     return {k: v.astype(np.float32) if v.dtype.kind == "f" else v for k, v in raw.items()}

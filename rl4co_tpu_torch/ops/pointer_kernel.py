@@ -27,12 +27,16 @@ threads, each group walking its own instances: `W_out` is staged once per
 block in shared memory, and K, V and LK stream through each group's ring of
 node tiles filled by asynchronous copies that run ahead across instance
 boundaries. The grouped kernel stages each tile of K, then V, then LK
-through one shared memory buffer per block of 16 queries, and each of its
-256 threads keeps the accumulators of 8 queries in registers. Its inner loops are bound by loads
-from shared memory rather than by arithmetic, so they walk the reduction
-axis four floats (one 16-byte load) at a time wherever every head starts on
-a 16-byte boundary. Scores, weights, glimpse and projection never reach
-device memory. Measured times stand in PERF.md.
+through one shared memory buffer per block of 16 queries, three blocks per
+SM. Measured, its arithmetic phases bind it, not the staging, so each of
+its 256 threads holds a register tile: 8 queries x 4 nodes of one head in
+the scores, 8 queries in the glimpse and the projection, 4 queries x 2
+nodes in the logits; sub-tiles of queries wholly past the last query are
+skipped. Its inner loops walk the reduction axis four floats (one 16-byte
+load from shared memory) at a time wherever every head starts on a 16-byte
+boundary. Scores, weights, glimpse and projection never reach device
+memory. Measured times stand in PERF.md; `ops/kernel_variants.py` times
+patched copies of either kernel beside it.
 
 On a CPU tensor the wrapper computes the plain version. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
