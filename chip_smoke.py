@@ -8,19 +8,24 @@ with and without the kernels; the same model trained with REINFORCE and the
 greedy rollout baseline through `Trainer.fit`, gradients flowing through the
 kernels' `autograd.Function`), drives `multistart_greedy` on TSP-500 through
 the grouped kernel past its former N limit, and replays the JAX package's
-golden greedy tours. It then runs the two trained checkpoints committed under
-`runs/` (exported to `rl4co_tpu_torch/golden/*_params.npz`) over the whole
-canonical test sets, AM on TSP-50 and POMO on CVRP-50, held to the JAX
-package's per-instance costs (`*_costs.npz`), and trains POMO on CVRP-50 at
-full width through the grouped kernel. Every phase prints one JSON line; any
-failure is a traceback and a non-zero exit. Without a card it exits non-zero
-and prints no result. `check_kernels` and `time_kernels` also run alone, from
-a short script, while a kernel is being worked on.
+golden greedy tours. It then runs the three trained checkpoints committed
+under `runs/` (exported to `rl4co_tpu_torch/golden/*_params.npz`) over the
+whole canonical test sets, AM on TSP-50, POMO on CVRP-50 and AM-XL on
+TSP-100, held to the JAX package's per-instance costs (`*_costs.npz`), runs
+beam search with the AM checkpoint through the grouped kernel (held to the
+JAX package's beam costs), and trains POMO on CVRP-50 at full width through
+the grouped kernel. Then the rest of the AM family: one bf16 train step of AM
+(kernel path against plain path), SymNCO on TSP-50 through the grouped
+kernel, and MVMoE on CVRP-50 and PolyNet on TSP-50, whose pointer heads
+reach no kernel. Every phase prints one JSON line; any failure is a
+traceback and a non-zero exit. Without a card it exits non-zero and prints
+no result. `check_kernels` and `time_kernels` also run alone, from a short
+script, while a kernel is being worked on.
 
 Weights are random, made from a seed, except the checkpoints'; evaluation
-instances are the committed `data/tsp/test50_seed1234.npz` and
-`data/cvrp/test50_seed1234.npz`, TSP-500 instances and training batches are
-generated on the card.
+instances are the committed `data/tsp/test50_seed1234.npz`,
+`data/tsp/test100_seed1234.npz` and `data/cvrp/test50_seed1234.npz`, TSP-500
+instances and training batches are generated on the card.
 Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 """
 
@@ -116,6 +121,13 @@ CASES = [
     (8, 17, 65, 128, 8, 0.7),
     (2, 3, 1, 128, 8, 0.7),
     (1, 50, 51, 128, 8, "cvrp_like"),
+    # the AM-XL checkpoint's dispatches on TSP-100 (greedy 8192, dihedral-8
+    # 1024 x 8), beam search of width 50 with the AM checkpoint (163
+    # instances per dispatch, the beams as queries), and SymNCO's evaluation
+    # (64 instances x 8 symmetric copies, 50 starts)
+    (8192, None, 100, 128, 8, 0.7),
+    (163, 50, 50, 128, 8, 0.7),
+    (512, 50, 50, 128, 8, 0.7),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -125,6 +137,9 @@ EXTRA_TIMES = [
     ("pointer_step_grouped", (64, 50, 51, 128, 8)),      # a POMO train step on CVRP-50
     ("pointer_step_grouped", (655, 50, 51, 128, 8)),     # ... its multistart greedy dispatch
     ("pointer_step_grouped", (648, 50, 51, 128, 8)),     # ... and with dihedral-8 (81 x 8)
+    ("pointer_step_single", (8192, None, 100, 128, 8)),  # the AM-XL checkpoint on TSP-100
+    ("pointer_step_grouped", (163, 50, 50, 128, 8)),     # beam search, width 50, TSP-50
+    ("pointer_step_grouped", (512, 50, 50, 128, 8)),     # SymNCO's multistart eval, 64 x 8
 ]
 
 
@@ -529,9 +544,10 @@ def check_golden(env, policy, locs, device, path=None):
 # ------------------------------------------------------ committed checkpoints
 
 GOLDEN = os.path.join(ROOT, "rl4co_tpu_torch", "golden")
-# name -> env, test set, eval methods, the port's policy builder (module,
-# name; called with ``env_name``), the pointer kernel its decode launches, the
-# TPU run's artifact, and the tolerances. ``reference_instances``: how many
+# name -> env and its size, test set, eval methods, the port's policy builder
+# (module, name; called with ``env_name`` and ``policy_kwargs``), the pointer
+# kernel its decode launches, the TPU run's artifact (None: no TPU run scored
+# this checkpoint), and the tolerances. ``reference_instances``: how many
 # instances the exported CPU reference costs cover, over which the mean is
 # held within ``mean_rtol``; where ``same_share`` is set, that share of the
 # per-instance costs must lie within ``cost_rtol``; where ``tpu_rtol`` is set,
@@ -539,22 +555,31 @@ GOLDEN = os.path.join(ROOT, "rl4co_tpu_torch", "golden")
 # the model is the trained one, not of rounding (else the artifact is printed
 # for information). AM (batch norm) is held at the reference's dispatch sizes
 # over all 10 000 instances; POMO (instance norm, no dispatch dependence) on
-# the reference's first 1 000.
+# the reference's first 1 000; AM-XL (instance norm; the TPU's evaluation of
+# it never ran) over all 10 000 at the reference's sizes.
 CHECKPOINTS = {
     "am_tsp50": dict(
-        env="tsp", data="data/tsp/test50_seed1234.npz",
+        env="tsp", num_loc=50, data="data/tsp/test50_seed1234.npz",
         methods=("greedy", "augment_dihedral_8"),
-        policy=("rl4co_tpu_torch.models", "AttentionModelPolicy"),
+        policy=("rl4co_tpu_torch.models", "AttentionModelPolicy"), policy_kwargs={},
         kernel="pointer_step_single", artifact="runs/am_tsp50_canonical_reeval.json",
         reference_instances=10_000, mean_rtol=1e-4, cost_rtol=None, same_share=None,
         tpu_rtol=None),
     "pomo_cvrp50": dict(
-        env="cvrp", data="data/cvrp/test50_seed1234.npz",
+        env="cvrp", num_loc=50, data="data/cvrp/test50_seed1234.npz",
         methods=("multistart_greedy", "multistart_greedy_augment_dihedral_8"),
-        policy=("rl4co_tpu_torch.models.zoo.pomo", "make_pomo_policy"),
+        policy=("rl4co_tpu_torch.models.zoo.pomo", "make_pomo_policy"), policy_kwargs={},
         kernel="pointer_step_grouped", artifact="runs/pomo_cvrp50_canonical_reeval.json",
         reference_instances=1_000, mean_rtol=1e-5, cost_rtol=1e-4, same_share=0.99,
         tpu_rtol=1e-3),
+    "amxl_tsp100": dict(
+        env="tsp", num_loc=100, data="data/tsp/test100_seed1234.npz",
+        methods=("greedy", "augment_dihedral_8"),
+        policy=("rl4co_tpu_torch.models", "AttentionModelPolicy"),
+        policy_kwargs=dict(num_encoder_layers=6, normalization="instance"),
+        kernel="pointer_step_single", artifact=None,
+        reference_instances=10_000, mean_rtol=1e-5, cost_rtol=1e-4, same_share=0.99,
+        tpu_rtol=None),
 }
 TOLERANCE_KEYS = ("reference_instances", "mean_rtol", "cost_rtol", "same_share", "tpu_rtol")
 
@@ -566,8 +591,8 @@ def checkpoint_policy(name, device):
 
     spec = CHECKPOINTS[name]
     module, builder = spec["policy"]
-    policy = getattr(importlib.import_module(module), builder)(env_name=spec["env"],
-                                                                device=device)
+    policy = getattr(importlib.import_module(module), builder)(
+        env_name=spec["env"], device=device, **spec["policy_kwargs"])
     tree = load_params_npz(os.path.join(GOLDEN, f"{name}_params.npz"))
     return load_params(policy, tree).eval()
 
@@ -583,14 +608,16 @@ def drive_checkpoint(name, device):
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
     spec = CHECKPOINTS[name]
-    env = get_env(spec["env"], num_loc=50)
+    env = get_env(spec["env"], num_loc=spec["num_loc"])
     test = load_reference_npz(os.path.join(ROOT, spec["data"]), spec["env"])
     n = len(test["locs"])
     assert n == 10_000, n
     policy = checkpoint_policy(name, device)
     kernel = spec["kernel"]
-    with open(os.path.join(ROOT, spec["artifact"])) as f:
-        tpu = json.load(f)["eval"]
+    tpu = None
+    if spec["artifact"] is not None:
+        with open(os.path.join(ROOT, spec["artifact"])) as f:
+            tpu = json.load(f)["eval"]
     report, total = {}, {k: 0 for k in LAUNCHES}
     with np.load(os.path.join(GOLDEN, f"{name}_costs.npz")) as ref_file:
         reference = {k: ref_file[k] for k in ref_file.files}
@@ -620,15 +647,16 @@ def drive_checkpoint(name, device):
             "share_equal_1e-5": float((rel <= 1e-5).mean()),
             "share_equal_1e-4": float((rel <= 1e-4).mean()),
             "max_rel_err": float(rel.max()),
-            "tpu_mean_cost": tpu[method]["mean_cost"],
-            "tpu_mean_rel_err": abs(float(cost.mean()) - tpu[method]["mean_cost"])
-                                / tpu[method]["mean_cost"],
             # the sweep's time holds `check_solutions`, a Python check of every
             # tour on the host: not a serving rate (that is `profile*`'s)
             "instances_per_s_with_validity_check": res["instances_per_s"],
             "seconds_with_validity_check": res["inference_time"],
             "warmup_s": res["warmup_s"], "launches": counts,
         }
+        if tpu is not None:
+            entry["tpu_mean_cost"] = tpu[method]["mean_cost"]
+            entry["tpu_mean_rel_err"] = (abs(float(cost.mean()) - tpu[method]["mean_cost"])
+                                         / tpu[method]["mean_cost"])
         assert mean_rel <= spec["mean_rtol"], f"{name}/{method}: mean off by {mean_rel:.2e}"
         if spec["same_share"] is not None:
             same = float((rel <= spec["cost_rtol"]).mean())
@@ -734,56 +762,77 @@ def check_function_gradients(device, seed=2, iters=20):
     return report
 
 
-def check_training_gradients(env, device, batch=64):
-    """(a) The kernel-path policy samples under grad and gives a REINFORCE
-    loss against a rollout-baseline snapshot with other weights; the
-    plain-path policy, same weights, replays the same actions with the same
-    baseline values. Loss and every parameter's gradient must agree."""
+def replayed_loss_pair(env, device, batch, compute_dtype=None, seed=11):
+    """The kernel-path policy samples under grad and gives a REINFORCE loss
+    against a rollout-baseline snapshot with other weights (its greedy
+    rollout included: 100 single-query launches on TSP-50); the plain-path
+    policy, same weights, replays the same actions with the same baseline
+    values. Both losses are backpropagated. Returns the policies, the
+    kernel-path algorithm, both losses, its rollout, the instances, and the
+    kernel path's launches and ms for its loss and backward (host clock,
+    synchronised)."""
     from rl4co_tpu_torch.decoding import DecodeSpec
     from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
-    from rl4co_tpu_torch.rl.baselines import Baseline, RolloutBaseline
+    from rl4co_tpu_torch.rl.baselines import RolloutBaseline
     from rl4co_tpu_torch.rl.reinforce import REINFORCE, seeded_generator
 
-    class GivenBaseline(Baseline):
-        """Hands back the values it was given (the kernel path's)."""
-
-        def __init__(self, values):
-            object.__setattr__(self, "values", values)
-
-        def eval(self, state, instances, reward, rollout_fn):
-            return self.values, torch.zeros((), device=reward.device)
-
-    spec = DecodeSpec(kind="sampling", tanh_clipping=10.0)
+    spec = DecodeSpec(kind="sampling", tanh_clipping=10.0, compute_dtype=compute_dtype)
     live = make_policies(device, seed=0)
     snapshot = make_policies(device, seed=1)["kernel"].requires_grad_(False)
-    inst = env.generate(batch, seeded_generator(device, 11), device)
+    inst = env.generate(batch, seeded_generator(device, seed), device)
 
     algo_k = REINFORCE(env, live["kernel"], baseline=RolloutBaseline(), train_spec=spec)
     algo_k.baseline_state = dataclasses.replace(algo_k.baseline_state, bl_policy=snapshot)
-    algo_k.reseed(12)
+    algo_k.reseed(seed + 1)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     reset_launches()
     loss_k, (metrics_k, out_k) = algo_k.loss(inst)
     loss_k.backward()
-    assert LAUNCHES["pointer_step_single"] == 2 * env.max_steps, dict(LAUNCHES)
+    launches = dict(LAUNCHES)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernel_ms = (time.perf_counter() - t0) * 1e3
+    assert launches == {"pointer_step_single": 2 * env.max_steps,
+                        "pointer_step_grouped": 0}, launches
     bl_val, _ = algo_k.baseline.eval(algo_k.baseline_state, inst, out_k.reward,
                                      algo_k.greedy_reward_fn())
     assert torch.allclose(bl_val.mean(), metrics_k["bl_val"], rtol=1e-6)  # it repeats
 
-    algo_p = REINFORCE(env, live["plain"], baseline=GivenBaseline(bl_val), train_spec=spec)
+    algo_p = REINFORCE(env, live["plain"], baseline=given_baseline(bl_val), train_spec=spec)
     reset_launches()
     loss_p, (_, out_p) = algo_p.loss(inst, replay_actions=out_k.actions)
     loss_p.backward()
     assert sum(LAUNCHES.values()) == 0, dict(LAUNCHES)
     assert torch.equal(out_p.actions, out_k.actions)
     env.check_solution_validity({}, out_k.actions)
+    return live, algo_k, loss_k, loss_p, out_k, inst, launches, kernel_ms
 
+
+def check_training_gradients(env, device, batch=64):
+    """(a) `replayed_loss_pair` in f32: loss and every parameter's gradient of
+    the kernel path must agree with the plain path's."""
+    live, _, loss_k, loss_p, *_ = replayed_loss_pair(env, device, batch)
     return {"batch": batch, **compare_gradients(live, loss_k, loss_p)}
 
 
-def compare_gradients(live, loss_k, loss_p):
+def given_baseline(values):
+    """A baseline that hands back ``values`` (the kernel path's), so that the
+    plain path's loss is taken against the same baseline values."""
+    from rl4co_tpu_torch.rl.baselines import Baseline
+
+    class GivenBaseline(Baseline):
+        def eval(self, state, instances, reward, rollout_fn):
+            return values, torch.zeros((), device=reward.device)
+
+    return GivenBaseline()
+
+
+def compare_gradients(live, loss_k, loss_p, grad_rtol=GRAD_RTOL):
     """Loss and every parameter's gradient of the kernel-path policy against
     the plain-path one's (same weights, same actions), at LOSS_RTOL and
-    GRAD_RTOL / GRAD_ATOL."""
+    ``grad_rtol`` / GRAD_ATOL."""
     lk, lp = loss_k.item(), loss_p.item()
     assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
     grads_p = {n: p.grad for n, p in live["plain"].named_parameters()}
@@ -794,7 +843,7 @@ def compare_gradients(live, loss_k, loss_p):
         gk, gp = p.grad, grads_p[name]
         assert gk is not None and torch.isfinite(gk).all(), name
         err = (gk - gp).abs()
-        over = (err - (GRAD_ATOL * scale + GRAD_RTOL * gp.abs())).max().item()
+        over = (err - (GRAD_ATOL * scale + grad_rtol * gp.abs())).max().item()
         assert over <= 0, (f"gradient of {name} differs between kernel and plain path: "
                            f"max abs err {err.max().item():.3e} at scale {scale:.3e}")
         if err.max().item() > worst_abs:
@@ -804,7 +853,7 @@ def compare_gradients(live, loss_k, loss_p):
             "grad_max_abs_err": worst_abs, "grad_max_abs_err_at": worst_name,
             "grad_max_err_over_scale": worst_abs / scale,
             "parameters": len(grads_p), "loss_rtol": LOSS_RTOL,
-            "grad_rtol": GRAD_RTOL, "grad_atol_of_scale": GRAD_ATOL}
+            "grad_rtol": grad_rtol, "grad_atol_of_scale": GRAD_ATOL}
 
 
 def split_step(algo, batch_size):
@@ -1161,6 +1210,212 @@ def train_pomo(env, locs_depot_demand, device, batch=64, steps=4, val=64):
     }, launches
 
 
+# ------------------------------------------------- the rest of the AM family
+
+BEAM_MEAN_RTOL, BEAM_COST_RTOL, BEAM_SAME_SHARE = 1e-4, 1e-5, 0.98
+
+
+def drive_beam(device, count=1_000):
+    """`evaluate_policy(..., "beam_search")` (width 50, the beams as the
+    grouped kernel's queries) with the AM TSP-50 checkpoint on the first
+    ``count`` canonical instances, in the reference's dispatches of 163,
+    every best tour checked; costs against the JAX package's. Launch counts
+    start at 0 here and are read at the end."""
+    from rl4co_tpu_torch.data.io import load_reference_npz
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    env = get_env("tsp", num_loc=50)
+    test = {k: v[:count] for k, v in load_reference_npz(
+        os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz"), "tsp").items()}
+    with np.load(os.path.join(GOLDEN, "am_tsp50_beam_costs.npz")) as f:
+        ref, dispatch = f["beam_search"], int(f["beam_search/dispatch"])
+    assert len(ref) == count, len(ref)
+    policy = checkpoint_policy("am_tsp50", device)
+    reset_launches()
+    res = evaluate_policy(env, policy, test, "beam_search", batch_size=dispatch,
+                          check_solutions=True, device=device)
+    launches = dict(LAUNCHES)
+    # one grouped launch per decode step of every dispatch, the warm-up's included
+    want = {"pointer_step_single": 0,
+            "pointer_step_grouped": (-(-count // dispatch) + 1) * env.max_steps}
+    assert launches == want, f"beam search: launches {launches}, expected {want}"
+    cost = -res["rewards"]
+    assert cost.shape == (count,) and np.isfinite(cost).all()
+    rel = np.abs(cost - ref) / ref
+    mean_rel = abs(float(cost.mean()) - float(ref.mean())) / float(ref.mean())
+    same = float((rel <= BEAM_COST_RTOL).mean())
+    assert mean_rel <= BEAM_MEAN_RTOL, f"beam search: mean off by {mean_rel:.2e}"
+    assert same >= BEAM_SAME_SHARE, f"beam search: only {same:.4f} of costs within 1e-5"
+    return {"model": "AM TSP-50 checkpoint (runs/ckpt_am_tsp50/best)", "width": 50,
+            "dispatch": dispatch, "instances": count, "mean_cost": float(cost.mean()),
+            "reference_mean_cost": float(ref.mean()), "mean_rel_err": mean_rel,
+            "share_equal_1e-5": same, "share_equal_1e-4": float((rel <= 1e-4).mean()),
+            "max_rel_err": float(rel.max()),
+            "instances_per_s_with_validity_check": res["instances_per_s"],
+            "seconds_with_validity_check": res["inference_time"], "warmup_s": res["warmup_s"],
+            "tolerances": {"mean_rtol": BEAM_MEAN_RTOL, "cost_rtol": BEAM_COST_RTOL,
+                           "same_share": BEAM_SAME_SHARE},
+            "launches": launches}, launches
+
+
+# A bf16 step's gradients, kernel path against plain path: both round the
+# same f32 masters through bf16, so they differ by the kernel's last bits (as
+# in phase (a)), and where those bits move a gradient across a bf16 rounding
+# boundary on its way back through the casts, by one bf16 ulp (2**-7 of it).
+BF16_GRAD_RTOL = GRAD_RTOL + 2 ** -7
+
+
+def train_bf16(env, device, batch=512):
+    """One AM train step at ``batch`` on TSP-50 with ``compute_dtype="bfloat16"``:
+    `replayed_loss_pair` in bf16 (the baseline's greedy rollout in bf16 too),
+    loss and every gradient compared at BF16_GRAD_RTOL, then the kernel
+    path's optimiser step, after which the masters must still be f32 leaves."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models import rollout
+
+    live, algo_k, loss_k, loss_p, out_k, inst, launches, kernel_ms = replayed_loss_pair(
+        env, device, batch, compute_dtype="bfloat16", seed=41)
+    report = compare_gradients(live, loss_k, loss_p, grad_rtol=BF16_GRAD_RTOL)
+    before = [p.detach().clone() for p in algo_k.policy.parameters()]
+    algo_k.optimizer.step()
+    for p in algo_k.policy.parameters():
+        assert p.dtype == torch.float32 and p.is_leaf and torch.isfinite(p).all()
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(algo_k.policy.parameters(), before))
+    assert moved > 1e-5
+    # the bf16 rollout is not the f32 one: the sampled tours' log-likelihoods
+    # under the f32 weights differ
+    with torch.no_grad():
+        f32 = rollout(live["plain"], env, inst,
+                      DecodeSpec(kind="evaluate", tanh_clipping=10.0),
+                      replay_actions=out_k.actions, device=device)
+    ll_gap = (f32.log_likelihood - out_k.log_likelihood.detach()).abs().max().item()
+    assert ll_gap > 1e-5, ll_gap
+    return {"model": "AM 128/8/3/512 batch norm, TSP-50, REINFORCE, rollout baseline, bf16",
+            "batch": batch, "launches": launches,
+            "loss_and_backward_ms": kernel_ms, **report,
+            "max_parameter_change": moved, "masters": "float32",
+            "ll_gap_to_f32_weights": ll_gap}, launches
+
+
+def train_zoo(algo, batch, steps, eval_fn, want_step, want_eval):
+    """``steps`` train steps of ``algo`` at ``batch``, then ``eval_fn()``, with
+    the pointer kernels' launches counted from 0 over the steps and over the
+    evaluation and asserted equal to ``want_step`` (per step) and
+    ``want_eval``. Returns the report and the launches."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    before = [p.detach().clone() for p in algo.policy.parameters()]
+    step_ms, step_launches = timed_steps(algo)
+    reset_launches()
+    metrics = [algo.train_step(batch) for _ in range(steps)]
+    train_launches = dict(LAUNCHES)
+    assert step_launches == [want_step] * steps, step_launches
+    losses = {k: [m[k].item() for m in metrics] for k in metrics[0] if k.startswith("loss")}
+    assert all(np.isfinite(v) for vs in losses.values() for v in vs), losses
+    assert losses["loss"][0] != 0.0, losses
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(algo.policy.parameters(), before))
+    assert moved > 1e-5 and all(torch.isfinite(p).all() for p in algo.policy.parameters())
+    reset_launches()
+    evaluation = eval_fn()
+    eval_launches = dict(LAUNCHES)
+    assert eval_launches == want_eval, eval_launches
+    launches = {k: train_launches[k] + eval_launches[k] for k in LAUNCHES}
+    return {"batch": batch, "steps": steps, "step_ms_runs": step_ms, "losses": losses,
+            "reward": [m["reward"].item() for m in metrics],
+            "grad_norm_last": algo.optimizer.grad_norm.item(), "max_parameter_change": moved,
+            "evaluation": evaluation, "launches_per_step": want_step,
+            "launches_evaluation": eval_launches, "launches": launches}, launches
+
+
+def train_symnco(env, locs, device, batch=64, steps=2, val=64):
+    """SymNCO on TSP-50 at AM's widths (batch norm): ``batch`` instances x 4
+    symmetric copies x 50 starts, two steps (the grouped kernel at B 256,
+    L 50, N 50: one launch per decode step), then `multistart_greedy_augment`
+    on ``val`` committed instances (B 512: 8 copies of each)."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.zoo.symnco import SymNCO
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    torch.manual_seed(1234)
+    algo = SymNCO(env, policy_kwargs=dict(device=device), num_augment=4,
+                  num_starts=env.get_num_starts(),
+                  train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+    algo.reseed(51)
+    per_step = {"pointer_step_single": 0, "pointer_step_grouped": env.max_steps}
+
+    def evaluate():
+        res = evaluate_policy(env, algo.policy, {"locs": locs[:val]}, "multistart_greedy_augment",
+                              batch_size=val, check_solutions=True, warmup=False, device=device,
+                              generator=torch.Generator(device=device).manual_seed(52))
+        return {"method": "multistart_greedy_augment", "instances": val,
+                "mean_cost": -res["mean_reward"]}
+
+    report, launches = train_zoo(algo, batch, steps, evaluate, per_step, per_step)
+    nonzero = {k for k in ("loss_ps", "loss_ss", "loss_inv") if report["losses"][k][0] != 0.0}
+    assert nonzero == {"loss_ps", "loss_ss", "loss_inv"}, report["losses"]
+    return {"model": "SymNCO: AM 128/8/3/512 batch norm + projection head, TSP-50, "
+                     "4 symmetric augments x 50 starts", **report}, launches
+
+
+def train_mvmoe(env, cvrp, device, batch=64, steps=2, val=64):
+    """`MVMoE_POMO` on CVRP-50 at published widths (embed 128, 6 MoE layers, 8
+    heads, FFN 512, 4 experts, top-2, instance norm): ``batch`` x 50 starts,
+    two steps, then POMO's evaluation step (multistart greedy on dihedral-8)
+    on ``val`` committed instances. Its pointer head is `pointer_logits` with
+    an MoE projection: no kernel launches."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.zoo.mvmoe import MVMoE_POMO
+
+    torch.manual_seed(1234)
+    algo = MVMoE_POMO(env, policy_kwargs=dict(device=device),
+                      train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+    p = algo.policy
+    assert (p.num_encoder_layers, p.num_experts, p.moe_topk) == (6, 4, 2)
+    algo.reseed(61)
+    none = {"pointer_step_single": 0, "pointer_step_grouped": 0}
+    eval_step = algo.make_eval_step()
+
+    def evaluate():
+        m = eval_step({k: v[:val] for k, v in cvrp.items()})
+        return {"method": "multistart_greedy_augment_dihedral_8 (POMO's eval step)",
+                "instances": val, "mean_cost": -m["reward"].item(),
+                "cost_best_of_starts": -m["max_reward"].item(),
+                "cost_best_of_starts_and_augments": -m["max_aug_reward"].item()}
+
+    report, launches = train_zoo(algo, batch, steps, evaluate, none, none)
+    return {"model": "MVMoE-POMO 128/8/6/512, 4 experts top-2, instance norm, CVRP-50, "
+                     "50 starts", **report}, launches
+
+
+def train_polynet(env, locs, device, batch=64, steps=2, val=64):
+    """PolyNet on TSP-50 at AM's widths (k 64, poly layer 256): ``batch`` x 64
+    samples, two steps, then its evaluation step (64 samples) on ``val``
+    committed instances. Its pointer head is `pointer_logits` with the poly
+    layers: no kernel launches."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.zoo.polynet import PolyNet
+
+    torch.manual_seed(1234)
+    algo = PolyNet(env, k=64, policy_kwargs=dict(poly_layer_dim=256, device=device),
+                   train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+    algo.reseed(71)
+    none = {"pointer_step_single": 0, "pointer_step_grouped": 0}
+    eval_step = algo.make_eval_step()
+
+    def evaluate():
+        m = eval_step({"locs": locs[:val]})
+        return {"samples": algo.val_num_solutions, "instances": val,
+                "mean_cost": -m["reward"].item(), "cost_best_of_samples": -m["max_reward"].item()}
+
+    report, launches = train_zoo(algo, batch, steps, evaluate, none, none)
+    return {"model": "PolyNet: AM 128/8/3/512 batch norm, k 64, poly layer 256, TSP-50",
+            **report}, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1231,6 +1486,13 @@ def main() -> int:
     emit({"phase": "profile_pomo", "card": smi, "dispatches": [
         profile_dispatch(cvrp_env, pomo, cvrp, device, m, c)
         for m, c in (("multistart_greedy", 655), ("multistart_greedy_augment_dihedral_8", 81))]})
+    tsp100 = load_instances_npz(os.path.join(ROOT, "data", "tsp", "test100_seed1234.npz"))
+    emit({"phase": "profile_amxl", "card": smi, "dispatches": [
+        profile_dispatch(get_env("tsp", num_loc=100), checkpoint_policy("amxl_tsp100", device),
+                         tsp100, device, m, c)
+        for m, c in (("greedy", 8192), ("augment_dihedral_8", 1024))]})
+    report, beam_launches = drive_beam(device)
+    emit({"phase": "beam_am_tsp50", "card": smi, **report})
 
     # 7. training: gradients through the kernels, then the trainer's paths
     emit({"phase": "train", "part": "a", "card": smi,
@@ -1246,6 +1508,16 @@ def main() -> int:
     report, pomo_launches = train_pomo(cvrp_env, cvrp, device)
     emit({"phase": "train_pomo", "card": smi, "replayed_loss_and_gradients": gradients,
           **report})
+
+    # 8. the rest of the AM family
+    report, bf16_launches = train_bf16(env, device)
+    emit({"phase": "train_bf16", "card": smi, **report})
+    report, symnco_launches = train_symnco(env, locs, device)
+    emit({"phase": "train_symnco", "card": smi, **report})
+    report, mvmoe_launches = train_mvmoe(cvrp_env, cvrp, device)
+    emit({"phase": "train_mvmoe", "card": smi, **report})
+    report, polynet_launches = train_polynet(env, locs, device)
+    emit({"phase": "train_polynet", "card": smi, **report})
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -1256,9 +1528,19 @@ def main() -> int:
     for name, spec in CHECKPOINTS.items():
         assert ckpt_launches[name][spec["kernel"]] > 0, f"{name}: {spec['kernel']} never launched"
     assert pomo_launches["pointer_step_grouped"] > 0
+    assert beam_launches["pointer_step_grouped"] > 0
+    assert bf16_launches["pointer_step_single"] > 0
+    assert symnco_launches["pointer_step_grouped"] > 0
+    # MVMoE's and PolyNet's pointer heads compute through `pointer_logits`
+    assert sum(mvmoe_launches.values()) == sum(polynet_launches.values()) == 0
     by_path["evaluation_tsp500"] = tsp500_launches
     by_path.update({f"evaluation_{name}": counts for name, counts in ckpt_launches.items()})
+    by_path["evaluation_beam_am_tsp50"] = beam_launches
     by_path["training_pomo_cvrp50"] = pomo_launches
+    by_path["training_bf16"] = bf16_launches
+    by_path["training_symnco"] = symnco_launches
+    by_path["training_mvmoe"] = mvmoe_launches
+    by_path["training_polynet"] = polynet_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({

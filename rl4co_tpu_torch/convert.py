@@ -9,8 +9,10 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
 - a Flax ``Dense`` ``kernel [in, out]`` becomes ``nn.Linear.weight``
   ``[out, in]`` (transposed); ``bias`` and a norm's ``scale``/``bias`` go as
   they are;
-- ``pointer/project_out_kernel [D, D]`` is **not** transposed (it is used as
-  ``x @ W``);
+- a vmapped MoE's stacked expert ``kernel [E, in, out]`` (3-D) keeps its
+  name and layout: `StackedDense` uses it as ``x @ kernel``;
+- ``pointer/project_out_kernel [D, D]`` (and its ``project_out_bias``) and
+  an MoE's ``w_gate [in, E]`` are **not** transposed (used as ``x @ W``);
 - ``context_embedding/W_placeholder`` is copied raw (the −1.0 is applied at
   use, in `TSPContext`).
 
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 # leaves copied as they are, by their last path component
-_RAW_LEAVES = ("bias", "scale", "project_out_kernel", "W_placeholder")
+_RAW_LEAVES = ("bias", "scale", "project_out_kernel", "project_out_bias", "W_placeholder",
+               "w_gate")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -75,10 +78,13 @@ def convert_params(tree: dict) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(tree).items():
         *parents, leaf = path
         if leaf == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: a Dense kernel must be 2-D, "
-                                 f"got shape {arr.shape}")
-            name, arr = ".".join(parents + ["weight"]), arr.T
+            if arr.ndim == 2:
+                name, arr = ".".join(parents + ["weight"]), arr.T
+            elif arr.ndim == 3:  # stacked experts [E, in, out]
+                name = ".".join(path)
+            else:
+                raise ValueError(f"{'/'.join(path)}: a Dense kernel must be 2-D (or 3-D for "
+                                 f"stacked experts), got shape {arr.shape}")
         elif leaf in _RAW_LEAVES:
             name = ".".join(path)
         else:
@@ -112,12 +118,23 @@ def random_params_numpy(
     num_encoder_layers: int = 3,
     feedforward_hidden: int = 512,
     normalization: str = "batch",
+    policy: str = "am",
+    env_name: str = "tsp",
+    use_graph_context: bool = True,
+    num_experts: int = 4,
+    k: int = 64,
+    poly_layer_dim: int = 256,
 ) -> dict:
-    """An AM/TSP ``params`` tree (without the outer ``"params"`` key) drawn
-    from ``np.random.RandomState(seed)``: kernels normal scaled by
-    ``1/sqrt(fan_in)``, biases normal·0.1, norm scales 1 + normal·0.1,
-    ``W_placeholder`` uniform in [0, 2). The draw order is fixed (the golden
-    file depends on it)."""
+    """A ``params`` tree (without the outer ``"params"`` key) of ``policy``
+    (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"``; ``num_experts``
+    for MVMoE, ``k`` and ``poly_layer_dim`` for PolyNet) on ``env_name``
+    (``"tsp"`` or ``"cvrp"``), drawn from ``np.random.RandomState(seed)``:
+    kernels normal scaled by ``1/sqrt(fan_in)``, biases and MoE gates
+    normal·0.1, norm scales 1 + normal·0.1, ``W_placeholder`` uniform in
+    [0, 2). The draw order is fixed (the golden file depends on that of AM on
+    TSP)."""
+    if policy not in ("am", "symnco", "mvmoe", "polynet") or env_name not in ("tsp", "cvrp"):
+        raise ValueError(f"no tree for policy={policy!r} on env_name={env_name!r}")
     rs = np.random.RandomState(seed)
     d, f = embed_dim, feedforward_hidden
 
@@ -141,22 +158,54 @@ def random_params_numpy(
             out["bias"] = bias(d)
         return out
 
-    tree = {"init_embedding": {"init_embed": dense(2, d)}, "encoder_net": {}}
+    def moe(fan_in, fan_out, hidden=()):
+        dims = [fan_in, *hidden, fan_out]
+        experts = {f"Dense_{i}": {
+            "kernel": np.stack([kernel(dims[i], dims[i + 1]) for _ in range(num_experts)]),
+            "bias": np.stack([bias(dims[i + 1]) for _ in range(num_experts)])}
+            for i in range(len(dims) - 1)}
+        return {"w_gate": (0.1 * rs.standard_normal((fan_in, num_experts))).astype(np.float32),
+                "experts": experts}
+
+    if env_name == "tsp":
+        tree = {"init_embedding": {"init_embed": dense(2, d)}}
+    else:
+        tree = {"init_embedding": {"init_embed_depot": dense(2, d), "init_embed": dense(3, d)}}
+    layers = {}
     for i in range(num_encoder_layers):
-        layer = {
-            "mha": {"Wqkv": dense(d, 3 * d), "out_proj": dense(d, d)},
-            "ffn": {"Dense_0": dense(d, f), "Dense_1": dense(f, d)},
-        }
+        layer = {"mha": {"Wqkv": dense(d, 3 * d), "out_proj": dense(d, d)}}
+        if policy == "mvmoe":
+            layer["moe_ffn"] = moe(d, d, (f,))
+        else:
+            layer["ffn"] = {"Dense_0": dense(d, f), "Dense_1": dense(f, d)}
         for name in ("norm1", "norm2"):
             p = norm()
             if p is not None:
                 layer[name] = p
-        tree["encoder_net"][f"layer_{i}"] = layer
+        layers[f"layer_{i}"] = layer
+    if policy == "mvmoe":  # the layers sit at the top, named moe_layer_{i}
+        tree.update({f"moe_{name}": layer for name, layer in layers.items()})
+    else:
+        tree["encoder_net"] = layers
     tree["project_node_embeddings"] = dense(d, 3 * d, use_bias=False)
-    tree["project_fixed_context"] = dense(d, d, use_bias=False)
-    tree["context_embedding"] = {
-        "W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
-        "project_context": dense(2 * d, d, use_bias=False),
-    }
-    tree["pointer"] = {"project_out_kernel": kernel(d, d)}
+    if use_graph_context:
+        tree["project_fixed_context"] = dense(d, d, use_bias=False)
+    if env_name == "tsp":
+        tree["context_embedding"] = {
+            "W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
+            "project_context": dense(2 * d, d, use_bias=False),
+        }
+    else:
+        tree["context_embedding"] = {"project_context": dense(d + 1, d, use_bias=False)}
+    if policy == "mvmoe":
+        tree["pointer"] = {"project_out_moe": moe(d, d)}
+    elif policy == "polynet":
+        bits = max(1, int(np.ceil(np.log2(k))))
+        tree["pointer"] = {"poly_layer_1": dense(d + bits, poly_layer_dim),
+                           "poly_layer_2": dense(poly_layer_dim, d),
+                           "project_out": dense(d, d, use_bias=False)}
+    else:
+        tree["pointer"] = {"project_out_kernel": kernel(d, d)}
+    if policy == "symnco":
+        tree["projection_head"] = {"layers_0": dense(d, d), "layers_2": dense(d, d)}
     return tree

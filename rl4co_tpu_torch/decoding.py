@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from rl4co_tpu_torch.utils.dtype import torch_dtype
+
 MASK_VALUE = -1e9
 
 
@@ -19,10 +21,14 @@ MASK_VALUE = -1e9
 class DecodeSpec:
     """Static decoding configuration.
 
-    kind: 'greedy' | 'sampling' | 'evaluate' (replay given actions).
+    kind: 'greedy' | 'sampling' | 'evaluate' (replay given actions) |
+        'beam_search' (``beam_width`` beams, default ``env.get_num_starts()``).
     multistart: POMO-style forced diverse first actions (+ `num_starts`).
     num_samples: i.i.d. sampling repeats (mutually exclusive with multistart).
-    select_best: reduce the starts/samples axis by max reward at the end.
+    select_best: reduce the starts/samples/beams axis by max reward at the end.
+    compute_dtype: None (f32) or a floating dtype's name, e.g. ``"bfloat16"``:
+        the rollout runs on the parameters rounded through it
+        (`rl4co_tpu_torch/utils/dtype.py`); logits, softmax and sampling stay f32.
     """
 
     kind: str = "sampling"
@@ -36,8 +42,6 @@ class DecodeSpec:
     num_samples: int = 0
     select_best: bool = False
     beam_width: int = 0
-    # mixed precision of the forward pass; anything but None waits for the
-    # bf16 slice and raises
     compute_dtype: Optional[str] = None
     # rematerialize the decode step in the backward pass: not ported, True raises
     remat: bool = False
@@ -51,9 +55,7 @@ class DecodeSpec:
             raise NotImplementedError(
                 "remat=True: rematerialising the decode step is not ported (ROADMAP.md)")
         if self.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: only f32 (None) is ported"
-            )
+            torch_dtype(self.compute_dtype)  # raises on a name that is no floating dtype
 
 
 def modify_logits_for_top_k_filtering(logits: torch.Tensor, top_k: int) -> torch.Tensor:

@@ -4,12 +4,16 @@ The encoder's attention is written out as batched matrix products. The
 single-query and grouped pointer step of the decoder goes through the fused
 CUDA kernel in `rl4co_tpu_torch/ops/pointer_kernel.py` (``impl="kernel"``,
 the default); its plain composition (``impl="plain"``) exists for the tests
-and for comparisons.
+and for comparisons. `pointer_logits` is the functional core of the pointer
+head with a caller's own output projection: the JAX package's XLA path,
+which PolyNet and MVMoE use, and the pointer's options that the kernel does
+not take (an output bias, an unmasked glimpse).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -74,6 +78,39 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(_merge_heads(out))
 
 
+def pointer_logits(
+    query: torch.Tensor,      # [B, L, D] L context queries per instance
+    glimpse_k: torch.Tensor,  # [B, N, D]
+    glimpse_v: torch.Tensor,  # [B, N, D]
+    logit_k: torch.Tensor,    # [B, N, D]
+    mask: torch.Tensor,       # [B, L, N] True = feasible
+    num_heads: int,
+    project_out: Callable[[torch.Tensor], torch.Tensor],  # [B, L, D] -> [B, L, D]
+    mask_inner: bool = True,
+) -> torch.Tensor:
+    """Functional core of the pointer head: the masked multi-head glimpse of
+    the L queries over glimpse K/V (masked scores *set* to -1e9; no mask at
+    all with ``mask_inner=False``), ``project_out`` of the merged heads, then
+    logits = glimpse · logit_k^T / sqrt(D), ``[B, L, N]``. The L queries of an
+    instance share its K/V."""
+    d = glimpse_k.shape[-1]
+    q = _split_heads(query, num_heads)                   # [B, H, L, Dh]
+    k = _split_heads(glimpse_k, num_heads)               # [B, H, N, Dh]
+    v = _split_heads(glimpse_v, num_heads)
+    inner_mask = mask[:, None, :, :] if mask_inner else None
+    heads = scaled_dot_product_attention(q, k, v, inner_mask)  # [B, H, L, Dh]
+    glimpse = project_out(_merge_heads(heads))                 # [B, L, D]
+    return torch.matmul(glimpse, logit_k.transpose(-1, -2)) / math.sqrt(d)
+
+
+def single_query(pointer_fn, query, glimpse_k, glimpse_v, logit_k, mask):
+    """``pointer_fn`` over ``[B, L, D]`` queries and ``[B, L, N]`` masks,
+    called with a ``[B, D]`` query and ``[B, N]`` mask as L = 1."""
+    if query.ndim == 3:
+        return pointer_fn(query, glimpse_k, glimpse_v, logit_k, mask)
+    return pointer_fn(query[:, None], glimpse_k, glimpse_v, logit_k, mask[:, None])[:, 0]
+
+
 class PointerAttention(nn.Module):
     """AM decoder pointer head: masked multi-head glimpse over the cached
     K/V, output projection, then logits = glimpse · logit_k^T / sqrt(D).
@@ -84,17 +121,27 @@ class PointerAttention(nn.Module):
     path uses) sends the step through the fused kernel: one launch per decode
     step. ``impl="plain"`` computes the kernels' plain version, for the tests
     and for comparisons. ``project_out_kernel`` is ``[D, D]`` and used as
-    ``x @ W`` (no transpose, no bias); the mask always applies to the glimpse.
+    ``x @ W``. The kernel takes neither an output bias (``out_bias=True``
+    adds ``project_out_bias``) nor an unmasked glimpse (``mask_inner=False``):
+    with ``impl="kernel"`` they raise, as the JAX package's Pallas path
+    refuses them; with ``impl="plain"`` they compute through `pointer_logits`.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int = 8, impl: str = "kernel"):
+    def __init__(self, embed_dim: int, num_heads: int = 8, impl: str = "kernel",
+                 mask_inner: bool = True, out_bias: bool = False):
         super().__init__()
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        if impl == "kernel" and (out_bias or not mask_inner):
+            raise ValueError("the pointer kernel takes no output bias and always masks "
+                             "the glimpse: out_bias=True or mask_inner=False needs "
+                             "impl='plain'")
         self.num_heads = num_heads
         self.impl = impl
+        self.mask_inner = mask_inner
         self.project_out_kernel = nn.Parameter(torch.empty(embed_dim, embed_dim))
         nn.init.normal_(self.project_out_kernel, std=embed_dim ** -0.5)
+        self.project_out_bias = nn.Parameter(torch.zeros(embed_dim)) if out_bias else None
 
     def forward(
         self,
@@ -104,6 +151,16 @@ class PointerAttention(nn.Module):
         logit_k: torch.Tensor,
         mask: torch.Tensor,       # [B, N] or [B, L, N], True = feasible
     ) -> torch.Tensor:
+        if self.project_out_bias is not None or not self.mask_inner:
+            def project_out(x):
+                y = x @ self.project_out_kernel
+                return y if self.project_out_bias is None else y + self.project_out_bias
+
+            def step(*args):
+                return pointer_logits(*args, num_heads=self.num_heads, project_out=project_out,
+                                      mask_inner=self.mask_inner)
+
+            return single_query(step, query, glimpse_k, glimpse_v, logit_k, mask)
         # the caches must already be contiguous (the wrapper refuses a
         # strided one: a copy here would be paid at every decode step)
         step = fused_pointer_logits if self.impl == "kernel" else pointer_logits_plain

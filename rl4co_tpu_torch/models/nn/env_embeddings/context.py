@@ -39,6 +39,15 @@ class TSPContext(nn.Module):
         self.W_placeholder = nn.Parameter(torch.rand(2 * embed_dim) * 2.0)
         self.project_context = nn.Linear(2 * embed_dim, embed_dim, bias=False)
 
+    def round_parameters(self, dtype: torch.dtype) -> dict:
+        """Under a compute dtype the JAX package subtracts the 1.0 from the
+        placeholder cast to it, in that dtype, and rounds again. The value
+        given here makes ``value - 1.0`` that twice-rounded number in f32:
+        it is a multiple of 2**-8 in [-1, 1) in bf16, so adding and taking
+        1.0 in f32 is exact. See `rl4co_tpu_torch/utils/dtype.py`."""
+        w = self.W_placeholder
+        return {"W_placeholder": (w.to(dtype) - 1.0).to(w.dtype) + 1.0}
+
     def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
         first = gather_rows(embeddings, state.first_node)      # [B', D]
         cur = gather_rows(embeddings, state.current_node)      # [B', D]
@@ -68,10 +77,10 @@ CONTEXT_EMBEDDING_REGISTRY = {
 }
 
 
-def env_context_embedding(env_name: str, embed_dim: int) -> nn.Module:
+def env_context_embedding(env_name: str, embed_dim: int, **kwargs) -> nn.Module:
     if env_name not in CONTEXT_EMBEDDING_REGISTRY:
         raise NotImplementedError(
             f"No context embedding ported for env '{env_name}' "
             f"(available: {sorted(CONTEXT_EMBEDDING_REGISTRY)})"
         )
-    return CONTEXT_EMBEDDING_REGISTRY[env_name](embed_dim)
+    return CONTEXT_EMBEDDING_REGISTRY[env_name](embed_dim, **kwargs)

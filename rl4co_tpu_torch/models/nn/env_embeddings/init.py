@@ -41,10 +41,10 @@ INIT_EMBEDDING_REGISTRY = {
 }
 
 
-def env_init_embedding(env_name: str, embed_dim: int) -> nn.Module:
+def env_init_embedding(env_name: str, embed_dim: int, **kwargs) -> nn.Module:
     if env_name not in INIT_EMBEDDING_REGISTRY:
         raise NotImplementedError(
             f"No init embedding ported for env '{env_name}' "
             f"(available: {sorted(INIT_EMBEDDING_REGISTRY)})"
         )
-    return INIT_EMBEDDING_REGISTRY[env_name](embed_dim)
+    return INIT_EMBEDDING_REGISTRY[env_name](embed_dim, **kwargs)

@@ -14,6 +14,10 @@ as everywhere in PyTorch: the loss of a training step calls `rollout` with
 gradients enabled (encoder, `precompute` and every decode step are then
 recorded); everything that only needs tours or rewards (`evaluate_policy`,
 a baseline's greedy rollout, validation) calls it under `torch.no_grad()`.
+
+With ``spec.compute_dtype`` the whole rollout runs, through
+`torch.func.functional_call`, on the parameters rounded through that dtype
+(`rl4co_tpu_torch/utils/dtype.py`); the f32 masters receive the gradients.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from rl4co_tpu_torch.decoding import (
 )
 from rl4co_tpu_torch.envs.base import Env
 from rl4co_tpu_torch.utils.device import resolve_device
+from rl4co_tpu_torch.utils.dtype import rounded_parameters, torch_dtype
 from rl4co_tpu_torch.utils.ops import batchify, unbatchify
 
 
@@ -69,6 +74,11 @@ class ConstructivePolicy(nn.Module):
                     num_repeats: int = 1) -> torch.Tensor:
         raise NotImplementedError
 
+    def forward(self, fn, *args):
+        """``fn(*args)``: what `torch.func.functional_call` runs on this
+        policy, so that a whole rollout sees the parameters it substitutes."""
+        return fn(*args)
+
 
 def instances_to_device(instances: dict, device: torch.device) -> dict:
     """numpy arrays or tensors -> tensors on ``device``."""
@@ -98,14 +108,26 @@ def rollout(
         device: where the rollout runs; the policy must already be there.
     """
     device = resolve_device(device)
-    if spec.kind == "beam_search":
-        raise NotImplementedError("beam search is not ported yet (see ROADMAP.md)")
     param = next(policy.parameters())
     if param.device.type != device.type:
         raise ValueError(f"policy is on {param.device}, rollout asked for {device}")
     instances = instances_to_device(instances, device)
     if replay_actions is not None:
         replay_actions = torch.as_tensor(replay_actions).to(device)
+    args = (policy, env, instances, spec, generator, replay_actions)
+    if spec.compute_dtype is None:
+        return _rollout(*args)
+    params = rounded_parameters(policy, torch_dtype(spec.compute_dtype))
+    return torch.func.functional_call(policy, params, (_rollout, *args))
+
+
+def _rollout(policy, env, instances, spec, generator, replay_actions) -> RolloutOutput:
+    if spec.kind == "beam_search":
+        from rl4co_tpu_torch.models.policies.beam_search import beam_search_rollout
+
+        width = spec.beam_width or env.get_num_starts()
+        return beam_search_rollout(policy, env, instances, width, spec,
+                                   select_best=spec.select_best)
     cache = policy.precompute(policy.encode(instances))
     return rollout_from_cache(policy, env, instances, cache, spec,
                               generator, replay_actions)

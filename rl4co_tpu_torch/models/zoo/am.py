@@ -32,7 +32,12 @@ class AttentionModelPolicy(ConstructivePolicy):
     ff 512, batch norm, graph context on. Sub-module names are those of the
     JAX package's parameter tree, so `rl4co_tpu_torch.convert` maps a tree
     onto this module by path. ``pointer_impl="kernel"`` sends every decode
-    step through the fused CUDA kernel; ``"plain"`` is its plain composition.
+    step through the fused CUDA kernel; ``"plain"`` is its plain composition
+    (and the only one that takes ``mask_inner=False``).
+    ``init_embedding_kwargs`` / ``context_embedding_kwargs`` go to the env's
+    embedding modules as they are (no ported embedding takes an argument yet). Subclasses replace the encoder (`_make_encoder`) or
+    the pointer head (`_make_pointer`), as MVMoE and PolyNet do; a subclass
+    that adds modules of its own moves them to `device`.
     """
 
     def __init__(
@@ -44,7 +49,10 @@ class AttentionModelPolicy(ConstructivePolicy):
         feedforward_hidden: int = 512,
         normalization: str = "batch",
         use_graph_context: bool = True,
+        mask_inner: bool = True,
         pointer_impl: str = "kernel",
+        init_embedding_kwargs: dict | None = None,
+        context_embedding_kwargs: dict | None = None,
         device="cuda",
     ):
         super().__init__()
@@ -53,25 +61,45 @@ class AttentionModelPolicy(ConstructivePolicy):
         self.embed_dim = embed_dim
         self.num_encoder_layers = num_encoder_layers
         self.num_heads = num_heads
+        self.feedforward_hidden = feedforward_hidden
+        self.normalization = normalization
         self.use_graph_context = use_graph_context
-        self.init_embedding = env_init_embedding(env_name, embed_dim)
-        self.encoder_net = GraphAttentionNetwork(
-            embed_dim=embed_dim,
-            num_heads=num_heads,
-            num_layers=num_encoder_layers,
-            normalization=normalization,
-            feedforward_hidden=feedforward_hidden,
-        )
-        self.context_embedding = env_context_embedding(env_name, embed_dim)
+        self.mask_inner = mask_inner
+        self.pointer_impl = pointer_impl
+        self.init_embedding = env_init_embedding(env_name, embed_dim,
+                                                 **(init_embedding_kwargs or {}))
+        self.encoder_net = self._make_encoder()
+        self.context_embedding = env_context_embedding(env_name, embed_dim,
+                                                       **(context_embedding_kwargs or {}))
         self.project_node_embeddings = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         # no graph context, no projection of it (the JAX tree has no such leaf)
         self.project_fixed_context = (
             nn.Linear(embed_dim, embed_dim, bias=False) if use_graph_context else None)
-        self.pointer = PointerAttention(embed_dim, num_heads, impl=pointer_impl)
+        self.pointer = self._make_pointer()
         self.to(device)
 
+    def _make_encoder(self) -> nn.Module | None:
+        """The encoder stack `encode` runs on the initial embeddings."""
+        return GraphAttentionNetwork(
+            embed_dim=self.embed_dim,
+            num_heads=self.num_heads,
+            num_layers=self.num_encoder_layers,
+            normalization=self.normalization,
+            feedforward_hidden=self.feedforward_hidden,
+        )
+
+    def _make_pointer(self) -> nn.Module:
+        """The pointer head `decode_step` calls; overridden by PolyNet and MVMoE."""
+        return PointerAttention(self.embed_dim, self.num_heads, impl=self.pointer_impl,
+                                mask_inner=self.mask_inner)
+
+    def init_embed(self, instances) -> torch.Tensor:
+        """The initial node embeddings, before the encoder (SymNCO's
+        invariance loss reads them)."""
+        return self.init_embedding(instances)
+
     def encode(self, instances) -> torch.Tensor:
-        return self.encoder_net(self.init_embedding(instances))
+        return self.encoder_net(self.init_embed(instances))
 
     def precompute(self, embeddings: torch.Tensor) -> PrecomputedCache:
         proj = self.project_node_embeddings(embeddings)

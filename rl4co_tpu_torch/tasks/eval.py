@@ -1,8 +1,13 @@
 """Evaluation harness (counterpart of `rl4co_tpu/tasks/eval.py`).
 
 Protocols over a fixed instance set:
-    greedy | sampling | multistart_greedy | augment_dihedral_8 |
-    multistart_greedy_augment_dihedral_8
+    greedy | sampling | multistart_greedy | augment_dihedral_8 | augment |
+    multistart_greedy_augment_dihedral_8 | multistart_greedy_augment |
+    beam_search
+
+(``augment``: 8 symmetric copies, rotations and reflections drawn from the
+generator; ``beam_search``: width ``num_starts``, by default
+``env.get_num_starts()``, best beam per instance.)
 
 Each is one sweep (augment → rollout → group-max) batched over the dataset.
 """
@@ -26,7 +31,7 @@ from rl4co_tpu_torch.utils.ops import unbatchify
 
 @dataclasses.dataclass(frozen=True)
 class EvalMethod:
-    decode: str = "greedy"          # greedy | sampling
+    decode: str = "greedy"          # greedy | sampling | beam_search
     num_samples: int = 1
     multistart: bool = False
     num_augment: int = 1
@@ -41,9 +46,14 @@ EVAL_METHODS = {
     "sampling": EvalMethod(decode="sampling", num_samples=1280),
     "multistart_greedy": EvalMethod(multistart=True),
     "augment_dihedral_8": EvalMethod(num_augment=8, augment_fn="dihedral8"),
+    "augment": EvalMethod(num_augment=8, augment_fn="symmetric"),
     "multistart_greedy_augment_dihedral_8": EvalMethod(
         multistart=True, num_augment=8, augment_fn="dihedral8"
     ),
+    "multistart_greedy_augment": EvalMethod(
+        multistart=True, num_augment=8, augment_fn="symmetric"
+    ),
+    "beam_search": EvalMethod(decode="beam_search"),
 }
 
 
@@ -78,10 +88,10 @@ def evaluate_policy(
     ``[n, ...]``); returns per-instance best rewards.
 
     ``batch_size=None`` dispatches ``min(8192 // (starts·augments), 8192)``
-    instances at a time. With batch normalisation an instance's result
-    depends on the instances that share its dispatch, so the dispatch size is
-    part of the protocol. A ragged tail is padded up to the dispatch size
-    with the first rows of the set.
+    instances at a time (beams count as starts). With batch normalisation an
+    instance's result depends on the instances that share its dispatch, so the
+    dispatch size is part of the protocol. A ragged tail is padded up to the
+    dispatch size with the first rows of the set.
 
     ``generator``: source of the sampling draws, on ``device`` (default: a
     new one seeded with 1234). ``return_actions``: also return the per-instance best
@@ -100,7 +110,9 @@ def evaluate_policy(
         generator = torch.Generator(device=device)
         generator.manual_seed(1234)
 
-    s = (num_starts or env.get_num_starts()) if m.multistart else max(m.num_samples, 1)
+    beam = m.decode == "beam_search"
+    s = ((num_starts or env.get_num_starts()) if (m.multistart or beam)
+         else max(m.num_samples, 1))
     a = max(m.num_augment, 1)
     if batch_size is None:
         batch_size = max(1, min(8192 // max(1, s * a), 8192))
@@ -114,8 +126,10 @@ def evaluate_policy(
         top_p=m.top_p,
         top_k=m.top_k,
         tanh_clipping=tanh_clipping,
+        beam_width=s if beam else 0,
+        select_best=beam,  # beam search reduces the beam axis itself
     )
-    repeats = s if (m.multistart or m.num_samples > 1) else 1
+    repeats = s if (m.multistart or m.num_samples > 1) and not beam else 1
     return_actions = return_actions or check_solutions
 
     instances = {k: torch.as_tensor(v) for k, v in instances.items()}

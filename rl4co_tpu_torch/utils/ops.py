@@ -12,15 +12,15 @@ import dataclasses
 import torch
 
 
-def _tree_map(fn, x):
+def tree_map(fn, x):
     """Apply ``fn`` to every tensor of a dict / dataclass / tensor tree."""
     if isinstance(x, torch.Tensor):
         return fn(x)
     if isinstance(x, dict):
-        return {k: _tree_map(fn, v) for k, v in x.items()}
+        return {k: tree_map(fn, v) for k, v in x.items()}
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return type(x)(**{
-            f.name: _tree_map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)
+            f.name: tree_map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)
         })
     raise TypeError(f"unsupported tree node {type(x).__name__}")
 
@@ -62,7 +62,7 @@ def batchify(x, repeats: int):
             repeats * a.shape[0], *a.shape[1:]
         )
 
-    return _tree_map(_one, x)
+    return tree_map(_one, x)
 
 
 def unbatchify(x, repeats: int):
@@ -72,4 +72,4 @@ def unbatchify(x, repeats: int):
         b = a.shape[0] // repeats
         return a.reshape(repeats, b, *a.shape[1:]).transpose(0, 1)
 
-    return _tree_map(_one, x)
+    return tree_map(_one, x)

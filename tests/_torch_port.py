@@ -20,6 +20,7 @@ from rl4co_tpu_torch.models.zoo.pomo import make_pomo_policy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TSP50_FILE = os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz")
+TSP100_FILE = os.path.join(ROOT, "data", "tsp", "test100_seed1234.npz")
 CVRP50_FILE = os.path.join(ROOT, "data", "cvrp", "test50_seed1234.npz")
 
 # the small size of the port's tests
@@ -95,3 +96,55 @@ def random_cvrp(seed, b, n):
         "depot": rs.random_sample((b, 2)).astype(np.float32),
         "demand": (rs.randint(1, 10, size=(b, n)) / default_capacity(n)).astype(np.float32),
     }
+
+
+def zoo_pair(policy, env_name="tsp", seed=0, **dims):
+    """The same seeded weights (`random_params_numpy(policy=...)`) as (JAX
+    policy of the zoo, its params, the port's policy on the CPU). ``dims``
+    holds the policy's own arguments (``k``, ``num_experts``, ...) beside the
+    small widths."""
+    from rl4co_tpu.models.zoo.mvmoe import MVMoEPolicy as JaxMVMoE
+    from rl4co_tpu.models.zoo.polynet import PolyNetPolicy as JaxPolyNet
+    from rl4co_tpu.models.zoo.symnco import SymNCOPolicy as JaxSymNCO
+    from rl4co_tpu_torch.models.zoo.mvmoe import MVMoEPolicy
+    from rl4co_tpu_torch.models.zoo.polynet import PolyNetPolicy
+    from rl4co_tpu_torch.models.zoo.symnco import SymNCOPolicy
+
+    dims = {**SMALL, **dims}
+    tree_keys = ("embed_dim", "num_encoder_layers", "feedforward_hidden", "normalization",
+                 "use_graph_context", "num_experts", "k", "poly_layer_dim")
+    tree = random_params_numpy(seed, policy=policy, env_name=env_name,
+                               **{k: v for k, v in dims.items() if k in tree_keys})
+    classes = {"symnco": (JaxSymNCO, SymNCOPolicy), "mvmoe": (JaxMVMoE, MVMoEPolicy),
+               "polynet": (JaxPolyNet, PolyNetPolicy)}[policy]
+    jpol = classes[0](env_name=env_name, **dims)
+    tpol = classes[1](env_name=env_name, device="cpu", **dims)
+    return jpol, tree_to_jax(tree), load_params(tpol, tree).eval()
+
+
+def decode_logits_pair(jpol, jparams, tpol, env_name, inst, repeats, first=None):
+    """Both packages' logits of one decode step on ``inst`` (numpy) with
+    ``repeats`` queries per instance: step 0, or the step after the forced
+    flat actions ``first``. Returns (JAX logits, the port's), numpy."""
+    from rl4co_tpu.envs import get_env as jax_get_env
+    from rl4co_tpu.utils.ops import batchify as jax_batchify
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.utils.ops import batchify
+
+    num_loc = next(iter(inst.values())).shape[1]
+    jenv, tenv = jax_get_env(env_name, num_loc=num_loc), get_env(env_name, num_loc=num_loc)
+    jinst = {k: jnp.asarray(v) for k, v in inst.items()}
+    cache = jpol.apply(jparams, jpol.apply(jparams, jinst, method="encode"), method="precompute")
+    state = jenv.reset_batch(jax_batchify(jinst, repeats))
+    if first is not None:
+        state = jenv.step_batch(state, jnp.asarray(first))
+    want = jpol.apply(jparams, cache, state, jenv.action_mask_batch(state), repeats,
+                      method="decode_step")
+    tinst = {k: torch.from_numpy(v) for k, v in inst.items()}
+    with torch.no_grad():
+        tcache = tpol.precompute(tpol.encode(tinst))
+        tstate = tenv.reset(batchify(tinst, repeats))
+        if first is not None:
+            tstate = tenv.step(tstate, torch.from_numpy(first))
+        got = tpol.decode_step(tcache, tstate, tenv.action_mask(tstate), repeats)
+    return np.asarray(want), t2n(got)

@@ -91,3 +91,35 @@ def test_an_unset_parameter_raises_with_its_path():
 def test_a_wrong_shape_raises_with_its_path():
     with pytest.raises(ValueError, match=r"[\w.]+: tree has shape \(\d+,.*the policy"):
         load_params(small_policy(embed_dim=64), fresh_tree())
+
+
+@pytest.mark.parametrize("policy,env_name", [("am", "cvrp"), ("symnco", "tsp"),
+                                             ("mvmoe", "cvrp"), ("polynet", "tsp")])
+def test_random_trees_of_the_zoo_have_the_structure_of_their_flax_trees(policy, env_name):
+    from rl4co_tpu.models.zoo.mvmoe import MVMoEPolicy
+    from rl4co_tpu.models.zoo.polynet import PolyNetPolicy
+    from rl4co_tpu.models.zoo.symnco import SymNCOPolicy
+
+    extra = dict(k=5, poly_layer_dim=24) if policy == "polynet" else {}
+    cls = {"am": JaxPolicy, "symnco": SymNCOPolicy, "mvmoe": MVMoEPolicy,
+           "polynet": PolyNetPolicy}[policy]
+    graph = env_name == "tsp"
+    jpol = cls(env_name=env_name, use_graph_context=graph, **SMALL, **extra)
+    want = tree_to_numpy(init_policy_params(jpol, jax_get_env(env_name, num_loc=8),
+                                            jax.random.PRNGKey(0)))["params"]
+    got = random_params_numpy(0, SMALL["embed_dim"], SMALL["num_encoder_layers"],
+                              SMALL["feedforward_hidden"], policy=policy, env_name=env_name,
+                              use_graph_context=graph, **extra)
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: a.shape, t)  # noqa: E731
+    assert shapes(got) == shapes(want)
+
+
+def test_stacked_expert_kernels_and_gates_keep_their_layout():
+    kernel = np.arange(24, dtype=np.float32).reshape(2, 3, 4)  # [E, in, out]
+    gate = np.arange(6, dtype=np.float32).reshape(3, 2)          # [in, E]
+    state = convert_params({"moe": {"w_gate": gate, "experts": {"Dense_0": {
+        "kernel": kernel, "bias": np.zeros((2, 4), np.float32)}}}})
+    np.testing.assert_array_equal(state["moe.experts.Dense_0.kernel"].numpy(), kernel)
+    np.testing.assert_array_equal(state["moe.w_gate"].numpy(), gate)
+    with pytest.raises(ValueError, match="moe/experts/Dense_0/kernel"):
+        convert_params({"moe": {"experts": {"Dense_0": {"kernel": np.zeros((1, 2, 3, 4))}}}})

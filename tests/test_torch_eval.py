@@ -3,6 +3,8 @@ methods, on 20 instances in dispatches of 8 (so the padded tail, which
 enters the batch-norm statistics, is exercised). Rewards per instance rtol
 1e-5, best actions equal, result keys equal."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,16 +104,25 @@ def test_the_tail_padding_changes_results_through_batch_norm():
 
 
 def test_methods_and_refusals():
-    assert set(EVAL_METHODS) == {
-        "greedy", "sampling", "multistart_greedy", "augment_dihedral_8",
-        "multistart_greedy_augment_dihedral_8"}
+    """The JAX package's eight methods; beam search and symmetric
+    augmentation, once refused, now run (held to the JAX package in
+    `test_torch_beam_search.py` and `test_torch_transforms.py`); an unknown
+    method still raises."""
+    from rl4co_tpu.tasks.eval import EVAL_METHODS as JAX_METHODS
+
+    assert EVAL_METHODS.keys() == JAX_METHODS.keys()
+    for name, m in JAX_METHODS.items():
+        assert dataclasses.asdict(EVAL_METHODS[name]) == dataclasses.asdict(m), name
     _, _, tpol = policy_pair(seed=2)
     env, inst = get_env("tsp", num_loc=N), {"locs": random_locs(9, 4, N)}
     with pytest.raises(ValueError):
-        evaluate_policy(env, tpol, inst, "beam_search", device="cpu")
-    with pytest.raises(NotImplementedError):
-        evaluate_policy(env, tpol, inst, "augment_dihedral_8", augment_fn="symmetric",
-                        device="cpu")
+        evaluate_policy(env, tpol, inst, "nonsense", device="cpu")
+    beam = evaluate_policy(env, tpol, inst, "beam_search", device="cpu", warmup=False,
+                           check_solutions=True)
+    sym = evaluate_policy(env, tpol, inst, "augment_dihedral_8", augment_fn="symmetric",
+                          device="cpu", warmup=False, check_solutions=True)
+    assert beam["rewards"].shape == sym["rewards"].shape == (4,)
+    assert beam["batch_size"] == 8192 // N
 
 
 def test_dihedral_augmentation_matches_jax():

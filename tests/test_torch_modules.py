@@ -217,10 +217,49 @@ def test_pointer_attention(grouped, timpl, jimpl):
 @pytest.mark.parametrize("kwargs", [dict(mask_inner=False), dict(out_bias=True),
                                     dict(impl="xla")])
 def test_pointer_attention_kernel_impl_refuses_what_it_would_change(kwargs):
-    # the port's pointer head always masks the glimpse and has no output
-    # bias: it knows no option that would say otherwise
+    # the kernel always masks the glimpse and has no output bias: with it,
+    # the options that would say otherwise raise, as the JAX package's Pallas
+    # path refuses them (they compute with impl="plain")
     with pytest.raises((TypeError, ValueError)):
         tatt.PointerAttention(D, H, **kwargs)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["single", "grouped"])
+@pytest.mark.parametrize("out_bias,mask_inner", [(True, True), (False, False), (True, False)],
+                         ids=["bias", "unmasked", "bias-unmasked"])
+def test_pointer_attention_options_match_jax(grouped, out_bias, mask_inner):
+    """An output bias and an unmasked glimpse, through `pointer_logits`,
+    against the JAX package's XLA path."""
+    b, n, l = 3, 10, 5
+    rs = np.random.RandomState(18)
+    q = rs.standard_normal((b, l, D) if grouped else (b, D)).astype(np.float32)
+    gk, gv, lk = (rs.standard_normal((b, n, D)).astype(np.float32) for _ in range(3))
+    mask = rs.random_sample((b, l, n) if grouped else (b, n)) < 0.6
+    mask[..., 0] = True
+    jmod = jatt.PointerAttention(D, H, impl="xla", out_bias=out_bias, mask_inner=mask_inner)
+    jargs = tuple(map(jnp.asarray, (q, gk, gv, lk, mask)))
+    params = flax_params(jmod, 19, *jargs)
+    tmod = carry(tatt.PointerAttention(D, H, impl="plain", out_bias=out_bias,
+                                       mask_inner=mask_inner), params)
+    with torch.no_grad():
+        out = tmod(*map(torch.from_numpy, (q, gk, gv, lk, mask)))
+    np.testing.assert_allclose(t2n(out), np.asarray(jmod.apply({"params": params}, *jargs)),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_pointer_logits_takes_the_callers_projection():
+    b, n, l = 2, 7, 4
+    rs = np.random.RandomState(20)
+    q = rs.standard_normal((b, l, D)).astype(np.float32)
+    gk, gv, lk = (rs.standard_normal((b, n, D)).astype(np.float32) for _ in range(3))
+    mask = rs.random_sample((b, l, n)) < 0.6
+    mask[..., 0] = True
+    w = (rs.standard_normal((D, D)) / D ** 0.5).astype(np.float32)
+    want = jatt.pointer_logits(*map(jnp.asarray, (q, gk, gv, lk, mask)), num_heads=H,
+                               project_out=lambda x: jnp.tanh(x @ jnp.asarray(w)))
+    got = tatt.pointer_logits(*map(torch.from_numpy, (q, gk, gv, lk, mask)), num_heads=H,
+                              project_out=lambda x: torch.tanh(x @ torch.from_numpy(w)))
+    np.testing.assert_allclose(t2n(got), np.asarray(want), rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["single", "grouped"])

@@ -156,5 +156,36 @@ def test_rollout_builds_no_graph_and_refuses_beam_search():
     tpol.requires_grad_(False)
     out = rollout(tpol, env, inst, DecodeSpec(kind="greedy"), device="cpu")
     assert not out.log_likelihood.requires_grad
-    with pytest.raises(NotImplementedError):
-        rollout(tpol, env, inst, DecodeSpec(kind="beam_search"), device="cpu")
+    # beam search, once refused, now runs (`test_torch_beam_search.py` holds it
+    # to the JAX package): valid best tours, and no graph with frozen weights
+    out = rollout(tpol, env, inst, DecodeSpec(kind="beam_search", select_best=True),
+                  device="cpu")
+    assert out.actions.shape == (2, N) and not out.log_likelihood.requires_grad
+    env.check_solution_validity({}, t2n(out.actions))
+
+
+def test_policy_options_match_jax():
+    """AM's ``mask_inner=False`` (plain pointer path; the JAX package's XLA
+    path) on TSP, multistart greedy."""
+    from rl4co_tpu.models import AttentionModelPolicy as JaxPolicy
+    from rl4co_tpu_torch.convert import load_params, random_params_numpy
+    from rl4co_tpu_torch.models import AttentionModelPolicy
+
+    from _torch_port import SMALL, tree_to_jax
+
+    tree = random_params_numpy(8, SMALL["embed_dim"], SMALL["num_encoder_layers"],
+                               SMALL["feedforward_hidden"])
+    inst = {"locs": random_locs(9, B, N)}
+    jpol = JaxPolicy(env_name="tsp", mask_inner=False, **SMALL)
+    tpol = load_params(AttentionModelPolicy(env_name="tsp", mask_inner=False,
+                                            pointer_impl="plain", device="cpu", **SMALL), tree)
+    spec = dict(kind="greedy", tanh_clipping=10.0, multistart=True, num_starts=N)
+    jout = jax_rollout(jpol, tree_to_jax(tree), jax_get_env("tsp", num_loc=N),
+                       {k: jnp.asarray(v) for k, v in inst.items()}, KEY, JaxSpec(**spec))
+    with torch.no_grad():
+        tout = rollout(tpol, get_env("tsp", num_loc=N), inst, DecodeSpec(**spec),
+                       device="cpu")
+    assert_outputs_match(jout, tout)
+    torch.testing.assert_close(tpol.init_embed({k: torch.from_numpy(v) for k, v in inst.items()}),
+                               tpol.init_embedding({k: torch.from_numpy(v)
+                                                    for k, v in inst.items()}))
