@@ -17,15 +17,20 @@ JAX package's beam costs), and trains POMO on CVRP-50 at full width through
 the grouped kernel. Then the rest of the AM family: one bf16 train step of AM
 (kernel path against plain path), SymNCO on TSP-50 through the grouped
 kernel, and MVMoE on CVRP-50 and PolyNet on TSP-50, whose pointer heads
-reach no kernel. Every phase prints one JSON line; any failure is a
-traceback and a non-zero exit. Without a card it exits non-zero and prints
+reach no kernel. Then the mixed OP + PCTSP configuration: the JAX package's
+full-width multi-env weights held to its greedy rewards on OP-20 and
+PCTSP-20, the configuration trained through the train command line
+(`rl4co_tpu_torch.train.main`), PtrNet trained through it, and the eval
+command line on the AM checkpoint and on OP-20 multistart. Every phase
+prints one JSON line; any failure is a traceback and a non-zero exit. Without a card it exits non-zero and prints
 no result. `check_kernels` and `time_kernels` also run alone, from a short
 script, while a kernel is being worked on.
 
-Weights are random, made from a seed, except the checkpoints'; evaluation
-instances are the committed `data/tsp/test50_seed1234.npz`,
-`data/tsp/test100_seed1234.npz` and `data/cvrp/test50_seed1234.npz`, TSP-500
-instances and training batches are generated on the card.
+Weights are random, made from a seed, except the checkpoints' and the
+multi-env golden file's; evaluation instances are the committed
+`data/tsp/test50_seed1234.npz`, `data/tsp/test100_seed1234.npz` and
+`data/cvrp/test50_seed1234.npz` and the golden OP/PCTSP instances; TSP-500
+and OP instances and training batches are generated on the card.
 Needs numpy, torch, nvcc and nvidia-smi; imports nothing of JAX.
 """
 
@@ -128,6 +133,16 @@ CASES = [
     (8192, None, 100, 128, 8, 0.7),
     (163, 50, 50, 128, 8, 0.7),
     (512, 50, 50, 128, 8, 0.7),
+    # the mixed OP + PCTSP configuration at N 21 (20 customers + the depot):
+    # a train step's sampling rollout (512), the validation's and the golden
+    # phase's greedy dispatch (1024), rows after `done` where the depot alone
+    # is feasible; OP's multistart greedy in the eval CLI (8192 // 20 = 409
+    # instances x 20 starts)
+    (512, None, 21, 128, 8, 0.7),
+    (1024, None, 21, 128, 8, 0.7),
+    (512, None, 21, 128, 8, "one_column"),
+    (409, 20, 21, 128, 8, 0.7),
+    (409, 20, 21, 128, 8, "one_column"),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -140,6 +155,9 @@ EXTRA_TIMES = [
     ("pointer_step_single", (8192, None, 100, 128, 8)),  # the AM-XL checkpoint on TSP-100
     ("pointer_step_grouped", (163, 50, 50, 128, 8)),     # beam search, width 50, TSP-50
     ("pointer_step_grouped", (512, 50, 50, 128, 8)),     # SymNCO's multistart eval, 64 x 8
+    ("pointer_step_single", (512, None, 21, 128, 8)),    # a mixed OP/PCTSP-20 train step
+    ("pointer_step_single", (1024, None, 21, 128, 8)),   # ... its greedy validation dispatch
+    ("pointer_step_grouped", (409, 20, 21, 128, 8)),     # OP-20 multistart greedy, eval CLI
 ]
 
 
@@ -1416,6 +1434,294 @@ def train_polynet(env, locs, device, batch=64, steps=2, val=64):
             **report}, launches
 
 
+# ---------------------------------- the mixed OP + PCTSP configuration, CLIs
+
+MULTIENV_NAMES = ("op", "pctsp")
+# per-instance and mean rewards against the JAX package's CPU greedy rewards
+MULTIENV_ATOL, MULTIENV_SAME_SHARE = 1e-5, 0.99
+# OP's greedy reward on the validation set must rise by at least this much
+# over the 100 steps (50 OP, then 50 PCTSP) of `cli_train_multienv`; stated in
+# PERF.md before the first run (JAX CPU: the untrained JAX policy's greedy
+# reward on OP-20 is 1.41; the TPU run's sampled OP reward went from 1.49 to
+# 3.76 in its first 200 steps, `runs/mixed_op_pctsp.jsonl`)
+OP_GAIN_MARGIN = 0.5
+# the JAX package's greedy mean cost of the AM TSP-50 checkpoint on the
+# canonical 10 000 instances (`golden/am_tsp50_costs.npz`, dispatch 8192)
+AM_TSP50_GREEDY = 5.794379
+
+
+def record_launch_shapes():
+    """Wrap the kernels' launch function so that every launch also records
+    its ``(kernel, B, L, N)``; returns the list it fills and the undo."""
+    from rl4co_tpu_torch.ops import pointer_kernel
+
+    inner, seen = pointer_kernel._launch, []
+
+    def launch(q, k, *args):
+        b, n, _ = k.shape
+        seen.append(("pointer_step_single", b, None, n) if q.ndim == 2
+                    else ("pointer_step_grouped", b, q.shape[1], n))
+        return inner(q, k, *args)
+
+    pointer_kernel._launch = launch
+
+    def undo():
+        pointer_kernel._launch = inner
+
+    return seen, undo
+
+
+def drive_golden_multienv(device):
+    """The JAX package's full-width multi-env parameters
+    (`golden/multienv_op_pctsp_params.npz`) in `MultiEnvAttentionPolicy`:
+    greedy on the 1 024 OP-20 and 1 024 PCTSP-20 golden instances, one
+    dispatch each through ``for_env``, every tour checked; rewards against
+    the JAX CPU rewards. Launch counts start at 0 here and are read at the end."""
+    from rl4co_tpu_torch.convert import load_params, load_params_npz
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.policies.multi_env import MultiEnvAttentionPolicy
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    policy = load_params(MultiEnvAttentionPolicy(device=device),
+                         load_params_npz(os.path.join(GOLDEN, "multienv_op_pctsp_params.npz")))
+    policy.eval()
+    with np.load(os.path.join(GOLDEN, "multienv_op_pctsp_costs.npz")) as f:
+        golden = {k: f[k] for k in f.files}
+    dispatch = int(golden["dispatch"])
+    report, total = {}, {k: 0 for k in LAUNCHES}
+    for name in MULTIENV_NAMES:
+        env = get_env(name, num_loc=20)
+        inst = {k.split("/", 1)[1]: v for k, v in golden.items()
+                if k.startswith(name + "/") and k != f"{name}/greedy"}
+        ref = golden[f"{name}/greedy"]
+        reset_launches()
+        res = evaluate_policy(env, policy.for_env(name), inst, "greedy", batch_size=dispatch,
+                              check_solutions=True, warmup=False, device=device)
+        counts = dict(LAUNCHES)
+        want = {"pointer_step_single": env.max_steps, "pointer_step_grouped": 0}
+        assert counts == want, f"golden {name}: launches {counts}, expected {want}"
+        for k in total:
+            total[k] += counts[k]
+        r = res["rewards"]
+        assert r.shape == ref.shape == (dispatch,) and np.isfinite(r).all()
+        err = np.abs(r - ref)
+        mean_err = abs(float(r.mean()) - float(ref.mean()))
+        same = float((err <= MULTIENV_ATOL).mean())
+        assert mean_err <= MULTIENV_ATOL, f"golden {name}: mean off by {mean_err:.2e}"
+        assert same >= MULTIENV_SAME_SHARE, f"golden {name}: only {same:.4f} within 1e-5"
+        report[name] = {"instances": dispatch, "dispatch": dispatch,
+                        "mean_reward": float(r.mean()), "reference_mean_reward": float(ref.mean()),
+                        "mean_abs_err": mean_err, "share_within_1e-5": same,
+                        "max_abs_err": float(err.max()), "tours_valid": 1.0,
+                        "seconds_with_validity_check": res["inference_time"],
+                        "launches": counts}
+    return {"model": "multi-env AM 128/8/3/512 batch norm, OP-20 + PCTSP-20, "
+                     "JAX-initialised weights (key 0)",
+            "tolerances": {"atol": MULTIENV_ATOL, "same_share": MULTIENV_SAME_SHARE},
+            "envs": report, "launches": total}, total
+
+
+def instrument_updates(cls):
+    """Wrap ``cls.update`` so that every train step is synchronised, timed and
+    its kernel launches counted (``args[0]``, the env's name where the
+    algorithm takes one, is recorded); returns the list it fills and the undo."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    inner, steps = cls.update, []
+
+    def update(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, t0 = dict(LAUNCHES), time.perf_counter()
+        metrics = inner(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append({"env": args[0] if isinstance(args[0], str) else None,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": metrics["loss"].item(),
+                      "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
+        return metrics
+
+    cls.update = update
+
+    def undo():
+        cls.update = inner
+
+    return steps, undo
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_cli_multienv(device, tmp, batch=512, steps=100, val=1024, margin=OP_GAIN_MARGIN):
+    """BASELINE.json's mixed configuration through the train CLI in-process:
+    ``--model am-multienv --env op,pctsp`` at OP-20 / PCTSP-20, batch 512,
+    51 200 instances (100 steps, dispatched in two blocks of 50: OP, then
+    PCTSP), validation on 1 024, the default bf16-mixed. OP's greedy reward
+    on the trainer's validation set, with the untrained policy that `build`
+    gives for the same spec and seed and with the trained one, must rise by
+    OP_GAIN_MARGIN. Then one more step per env under the profiler. Launch
+    counts start at 0 just before `main` and are read just after."""
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.multi_env import MultiEnvREINFORCE
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+    from rl4co_tpu_torch.trainer import _STREAM_VAL
+
+    size = steps * batch
+    log = os.path.join(tmp, "multienv.jsonl")
+    argv = ["--model", "am-multienv", "--env", "op,pctsp", "--num-loc", "20",
+            "--batch-size", str(batch), "--train-size", str(size), "--epochs", "1",
+            "--val-size", str(val), "--ckpt-dir", os.path.join(tmp, "multienv"),
+            "--log-file", log, "--device", str(device)]
+    spec = train.WorkloadSpec(env_name="op,pctsp", env_kwargs=(("num_loc", 20),),
+                              model="am-multienv", epochs=1, batch_size=batch,
+                              train_data_size=size, val_data_size=val, device=str(device))
+    untrained, _ = train.build(spec)
+    assert untrained.train_spec.compute_dtype == "bfloat16"
+    op = untrained.envs["op"]
+    fixed = op.generate(val, seeded_generator(device, spec.seed, _STREAM_VAL), device)
+    before = untrained.make_eval_step()(fixed)["reward"].item()
+    del untrained
+    done, undo = instrument_updates(MultiEnvREINFORCE)
+    try:
+        reset_launches()
+        algo = train.main(argv)
+        launches = dict(LAUNCHES)
+    finally:
+        undo()
+    per_step = {"pointer_step_single": op.max_steps, "pointer_step_grouped": 0}
+    # blocks of the largest divisor of the steps up to `log_every` (50), the
+    # envs in turns from the first: 50 OP steps, then 50 PCTSP steps
+    chunk = max(c for c in range(1, min(50, steps) + 1) if steps % c == 0)
+    blocks = [(MULTIENV_NAMES[d % 2], chunk) for d in range(steps // chunk)]
+    sequence = [s["env"] for s in done]
+    assert sequence == [n for n, c in blocks for _ in range(c)], sequence
+    assert all(s["launches"] == per_step for s in done), [s["launches"] for s in done]
+    # + the one greedy validation dispatch of OP
+    assert launches == {"pointer_step_single": (len(done) + 1) * op.max_steps,
+                        "pointer_step_grouped": 0}, launches
+    assert all(np.isfinite(s["loss"]) for s in done)
+    records = read_jsonl(log)
+    epoch = [r for r in records if "val/reward" in r][-1]
+    after = algo.make_eval_step()(fixed)["reward"].item()
+    assert abs(after - epoch["val/reward"]) <= 1e-5 * max(1.0, abs(after)), (after, epoch)
+    assert after - before >= margin, (
+        f"OP's greedy reward went from {before:.4f} to {after:.4f}: less than the margin {margin}")
+    ms = {name: statistics.median(s["ms"] for s in done if s["env"] == name)
+          for name in MULTIENV_NAMES}
+    profiled = {}
+    for name in MULTIENV_NAMES:
+        env = algo.envs[name]
+        inst = env.generate(batch, algo.generator, device)
+        _, busy, n_launches, top = device_profile(lambda: algo.update(name, inst))
+        profiled[name] = {"device_busy_ms": busy, "device_launches": n_launches,
+                          "device_busy_share_of_median_step":
+                              None if busy is None else busy / ms[name],
+                          "top_kernels": top}
+    return {"model": "am-multienv 128/8/3/512 batch norm, OP-20 + PCTSP-20, bf16-mixed, "
+                     "exponential baseline per env, Adam 1e-4",
+            "argv": argv, "steps": len(done), "env_blocks": blocks,
+            "step_ms_median": ms,
+            "env_steps_per_s": {n: batch * algo.envs[n].max_steps / ms[n] * 1e3 for n in ms},
+            "epoch_env_steps_per_s": epoch["env_steps_per_s"], "epoch_s": epoch["time/epoch_s"],
+            "step_ms_runs": [round(s["ms"], 3) for s in done],
+            "losses_first_last_per_block": [(done[i]["loss"], done[i + c - 1]["loss"])
+                                            for i, (_, c) in zip(range(0, steps, chunk), blocks)],
+            "op_greedy_reward_before": before, "op_greedy_reward_after": after,
+            "op_gain": after - before, "margin": margin,
+            "launches_per_step": per_step, "launches": launches,
+            "profiled_step": profiled}, launches
+
+
+def train_cli_ptrnet(device, tmp):
+    """PtrNet (embed and hidden 128: Bello et al.'s widths, the JAX defaults)
+    on TSP-50 through the train CLI: batch 512, two steps, validation on 1
+    024. Its LSTMs and additive pointer reach no kernel. Launch counts start
+    at 0 just before `main` and are read just after."""
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.models.zoo.ptrnet import PointerNetworkModel
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    argv = ["--model", "ptrnet", "--env", "tsp", "--num-loc", "50", "--batch-size", "512",
+            "--train-size", "1024", "--epochs", "1", "--val-size", "1024",
+            "--log-file", os.path.join(tmp, "ptrnet.jsonl"), "--device", str(device)]
+    steps, undo = instrument_updates(PointerNetworkModel)
+    try:
+        reset_launches()
+        algo = train.main(argv)
+        launches = dict(LAUNCHES)
+    finally:
+        undo()
+    assert sum(launches.values()) == 0, launches
+    assert len(steps) == 2 and all(np.isfinite(s["loss"]) for s in steps), steps
+    assert (algo.policy.embed_dim, algo.policy.hidden_dim) == (128, 128)
+    assert np.isfinite(algo.baseline_value.item())
+    epoch = [r for r in read_jsonl(os.path.join(tmp, "ptrnet.jsonl")) if "val/reward" in r][-1]
+    assert np.isfinite(epoch["val/reward"])
+    return {"model": "PtrNet embed 128 hidden 128, TSP-50, moving baseline, Adam 1e-4, f32",
+            "argv": argv, "step_ms_runs": [s["ms"] for s in steps],
+            "losses": [s["loss"] for s in steps], "val_cost": -epoch["val/reward"],
+            "launches": launches}, launches
+
+
+def eval_cli_checkpoint(device, ckpt_greedy_mean_cost, ckpt_rel_tol):
+    """The eval CLI in-process on the AM TSP-50 checkpoint's params npz and
+    the committed test set, at the dispatch of phase `ckpt_am_tsp50`'s greedy
+    sweep, whose mean it must repeat. Launch counts start at 0 just before
+    `main` and are read just after."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks import eval_cli
+
+    argv = ["--problem", "tsp", "--num-loc", "50", "--method", "greedy",
+            "--ckpt-path", os.path.join(GOLDEN, "am_tsp50_params.npz"),
+            "--data-path", os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz"),
+            "--batch-size", "8192", "--device", str(device)]
+    reset_launches()
+    res = eval_cli.main(argv)
+    counts = dict(LAUNCHES)
+    # the warm-up, one full dispatch and the padded tail: 50 steps each
+    assert counts == {"pointer_step_single": 3 * 50, "pointer_step_grouped": 0}, counts
+    diff = abs(res["mean_reward"] + ckpt_greedy_mean_cost)
+    assert diff <= 1e-6, f"eval CLI: {res['mean_reward']} against {-ckpt_greedy_mean_cost}"
+    golden_rel = abs(-res["mean_reward"] - AM_TSP50_GREEDY) / AM_TSP50_GREEDY
+    assert golden_rel <= ckpt_rel_tol, golden_rel
+    return {"argv": argv, "mean_reward": res["mean_reward"],
+            "phase_ckpt_am_tsp50_mean_cost": ckpt_greedy_mean_cost, "abs_diff": diff,
+            "golden_mean_cost": AM_TSP50_GREEDY, "golden_rel_err": golden_rel,
+            "instances_per_s": res["instances_per_s"], "launches": counts}, counts
+
+
+def eval_cli_op_multistart(device, size=1000):
+    """The eval CLI in-process: OP-20 multistart greedy on ``size`` generated
+    instances, randomly initialised AM, at the default dispatch (8192 // 20 =
+    409 instances x 20 starts through the grouped kernel). Launch counts
+    start at 0 just before `main` and are read just after."""
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks import eval_cli
+
+    argv = ["--problem", "op", "--num-loc", "20", "--method", "multistart_greedy",
+            "--size", str(size), "--device", str(device)]
+    shapes, undo = record_launch_shapes()
+    try:
+        reset_launches()
+        res = eval_cli.main(argv)
+        counts = dict(LAUNCHES)
+    finally:
+        undo()
+    dispatch = 8192 // 20
+    assert res["batch_size"] == dispatch and res["rewards"].shape == (size,)
+    assert np.isfinite(res["rewards"]).all()
+    # the warm-up, the full dispatches and the padded tail: 22 steps each
+    want = (1 + -(-size // dispatch)) * 22
+    assert counts == {"pointer_step_single": 0, "pointer_step_grouped": want}, counts
+    assert set(shapes) == {("pointer_step_grouped", dispatch, 20, 21)}, set(shapes)
+    return {"argv": argv, "mean_reward": res["mean_reward"], "dispatch": res["batch_size"],
+            "kernel_shapes": sorted(set(shapes)), "instances_per_s": res["instances_per_s"],
+            "launches": counts}, counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1474,9 +1780,10 @@ def main() -> int:
     emit({"phase": "golden", **check_golden(env, policies["kernel"], locs, device)})
 
     # 6. the committed checkpoints on the canonical test sets
-    ckpt_launches = {}
+    ckpt_launches, ckpt_reports = {}, {}
     for name in CHECKPOINTS:
         report, ckpt_launches[name] = drive_checkpoint(name, device)
+        ckpt_reports[name] = report
         emit({"phase": f"ckpt_{name}", "card": smi, "methods": report,
               "tolerances": {k: CHECKPOINTS[name][k] for k in TOLERANCE_KEYS},
               "launches": ckpt_launches[name]})
@@ -1518,6 +1825,22 @@ def main() -> int:
     emit({"phase": "train_mvmoe", "card": smi, **report})
     report, polynet_launches = train_polynet(env, locs, device)
     emit({"phase": "train_polynet", "card": smi, **report})
+
+    # 9. the mixed OP + PCTSP configuration, PtrNet, and the command lines
+    report, multienv_golden_launches = drive_golden_multienv(device)
+    emit({"phase": "golden_multienv", "card": smi, **report})
+    with tempfile.TemporaryDirectory() as tmp:
+        report, multienv_launches = train_cli_multienv(device, tmp)
+        emit({"phase": "cli_train_multienv", "card": smi, **report})
+        report, ptrnet_launches = train_cli_ptrnet(device, tmp)
+        emit({"phase": "cli_train_ptrnet", "card": smi, **report})
+    ckpt_report, ckpt_cli_launches = eval_cli_checkpoint(
+        device, ckpt_reports["am_tsp50"]["greedy"]["mean_cost"],
+        CHECKPOINTS["am_tsp50"]["mean_rtol"])
+    op_report, op_cli_launches = eval_cli_op_multistart(device)
+    cli_eval_launches = {k: ckpt_cli_launches[k] + op_cli_launches[k] for k in launches}
+    emit({"phase": "cli_eval", "card": smi, "am_tsp50_greedy": ckpt_report,
+          "op20_multistart_greedy": op_report, "launches": cli_eval_launches})
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -1533,6 +1856,11 @@ def main() -> int:
     assert symnco_launches["pointer_step_grouped"] > 0
     # MVMoE's and PolyNet's pointer heads compute through `pointer_logits`
     assert sum(mvmoe_launches.values()) == sum(polynet_launches.values()) == 0
+    assert multienv_golden_launches["pointer_step_single"] > 0
+    assert multienv_launches["pointer_step_single"] > 0
+    assert sum(ptrnet_launches.values()) == 0  # PtrNet's pointer is additive, no kernel
+    assert cli_eval_launches["pointer_step_single"] > 0
+    assert cli_eval_launches["pointer_step_grouped"] > 0
     by_path["evaluation_tsp500"] = tsp500_launches
     by_path.update({f"evaluation_{name}": counts for name, counts in ckpt_launches.items()})
     by_path["evaluation_beam_am_tsp50"] = beam_launches
@@ -1541,6 +1869,10 @@ def main() -> int:
     by_path["training_symnco"] = symnco_launches
     by_path["training_mvmoe"] = mvmoe_launches
     by_path["training_polynet"] = polynet_launches
+    by_path["evaluation_golden_multienv"] = multienv_golden_launches
+    by_path["training_cli_multienv"] = multienv_launches
+    by_path["training_cli_ptrnet"] = ptrnet_launches
+    by_path["evaluation_cli"] = cli_eval_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({

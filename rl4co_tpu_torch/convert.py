@@ -14,7 +14,13 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
 - ``pointer/project_out_kernel [D, D]`` (and its ``project_out_bias``) and
   an MoE's ``w_gate [in, E]`` are **not** transposed (used as ``x @ W``);
 - ``context_embedding/W_placeholder`` is copied raw (the −1.0 is applied at
-  use, in `TSPContext`).
+  use, in `TSPContext`);
+- PtrNet's raw parameters ``v`` and ``decoder_input0`` go as they are; its
+  Flax LSTM cells keep their tree's names (``enc_lstm/ii/kernel``, ...), which
+  `models/zoo/ptrnet.py::LSTMCell` registers as ``nn.Linear``s;
+- the multi-env policy's per-env embeddings keep their tree's names
+  (``init_embeddings_op``, ``context_embeddings_pctsp``, ...), which
+  `models/policies/multi_env.py` registers as they are.
 
 `load_params` fills a policy and insists that every leaf is consumed and
 every parameter set. `save_params_npz` / `load_params_npz` carry a tree
@@ -34,7 +40,7 @@ import torch
 
 # leaves copied as they are, by their last path component
 _RAW_LEAVES = ("bias", "scale", "project_out_kernel", "project_out_bias", "W_placeholder",
-               "w_gate")
+               "w_gate", "v", "decoder_input0")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -112,6 +118,10 @@ def load_params(policy: torch.nn.Module, tree: dict) -> torch.nn.Module:
     return policy
 
 
+_TREE_POLICIES = ("am", "symnco", "mvmoe", "polynet", "ptrnet", "multienv", "multienv_moe")
+_TREE_ENVS = ("tsp", "cvrp", "op", "pctsp", "spctsp")
+
+
 def random_params_numpy(
     seed: int,
     embed_dim: int = 128,
@@ -124,17 +134,24 @@ def random_params_numpy(
     num_experts: int = 4,
     k: int = 64,
     poly_layer_dim: int = 256,
+    hidden_dim: int = 128,
+    env_names: tuple = ("op", "pctsp"),
 ) -> dict:
     """A ``params`` tree (without the outer ``"params"`` key) of ``policy``
-    (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"``; ``num_experts``
-    for MVMoE, ``k`` and ``poly_layer_dim`` for PolyNet) on ``env_name``
-    (``"tsp"`` or ``"cvrp"``), drawn from ``np.random.RandomState(seed)``:
-    kernels normal scaled by ``1/sqrt(fan_in)``, biases and MoE gates
-    normal·0.1, norm scales 1 + normal·0.1, ``W_placeholder`` uniform in
-    [0, 2). The draw order is fixed (the golden file depends on that of AM on
-    TSP)."""
-    if policy not in ("am", "symnco", "mvmoe", "polynet") or env_name not in ("tsp", "cvrp"):
-        raise ValueError(f"no tree for policy={policy!r} on env_name={env_name!r}")
+    (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"`` on ``env_name``,
+    one of ``tsp``, ``cvrp``, ``op``, ``pctsp`` and ``spctsp``;
+    ``"multienv"`` or ``"multienv_moe"`` over ``env_names``; ``"ptrnet"``
+    with ``embed_dim`` and ``hidden_dim``; ``num_experts`` for the MoE
+    trees, ``k`` and ``poly_layer_dim`` for PolyNet), drawn from
+    ``np.random.RandomState(seed)``: kernels normal scaled by
+    ``1/sqrt(fan_in)``, biases and MoE gates normal·0.1, norm scales
+    1 + normal·0.1, ``W_placeholder`` uniform in [0, 2), PtrNet's ``v`` and
+    ``decoder_input0`` uniform in [0, 0.2). The draw order is fixed (the
+    golden file depends on that of AM on TSP)."""
+    multi = policy in ("multienv", "multienv_moe")
+    envs = tuple(env_names) if multi else (env_name,)
+    if policy not in _TREE_POLICIES or any(e not in _TREE_ENVS for e in envs):
+        raise ValueError(f"no tree for policy={policy!r} on {envs}")
     rs = np.random.RandomState(seed)
     d, f = embed_dim, feedforward_hidden
 
@@ -149,6 +166,19 @@ def random_params_numpy(
         if use_bias:
             out["bias"] = bias(fan_out)
         return out
+
+    if policy == "ptrnet":
+        h = hidden_dim
+
+        def lstm(fan_in):  # Flax's cell: input kernels without bias, hidden ones with
+            cell = {f"i{g}": {"kernel": kernel(fan_in, h)} for g in "ifgo"}
+            cell.update({f"h{g}": dense(h, h) for g in "ifgo"})
+            return cell
+
+        return {"embed": dense(2, d), "enc_lstm": lstm(d), "dec_lstm": lstm(d),
+                "W_q": dense(h, h, use_bias=False), "W_ref": dense(h, h, use_bias=False),
+                "v": (0.2 * rs.random_sample(h)).astype(np.float32),
+                "decoder_input0": (0.2 * rs.random_sample(d)).astype(np.float32)}
 
     def norm():
         if normalization in (None, "none", "layer"):
@@ -167,14 +197,27 @@ def random_params_numpy(
         return {"w_gate": (0.1 * rs.standard_normal((fan_in, num_experts))).astype(np.float32),
                 "experts": experts}
 
-    if env_name == "tsp":
-        tree = {"init_embedding": {"init_embed": dense(2, d)}}
+    def init_embedding(env):
+        if env == "tsp":
+            return {"init_embed": dense(2, d)}
+        features = {"cvrp": 3, "op": 3, "pctsp": 4, "spctsp": 4}[env]
+        return {"init_embed_depot": dense(2, d), "init_embed": dense(features, d)}
+
+    def context_embedding(env):
+        if env == "tsp":
+            return {"W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
+                    "project_context": dense(2 * d, d, use_bias=False)}
+        return {"project_context": dense(d + 1, d, use_bias=False)}
+
+    moe_trunk = policy in ("mvmoe", "multienv_moe")
+    if multi:
+        tree = {f"init_embeddings_{e}": init_embedding(e) for e in envs}
     else:
-        tree = {"init_embedding": {"init_embed_depot": dense(2, d), "init_embed": dense(3, d)}}
+        tree = {"init_embedding": init_embedding(env_name)}
     layers = {}
     for i in range(num_encoder_layers):
         layer = {"mha": {"Wqkv": dense(d, 3 * d), "out_proj": dense(d, d)}}
-        if policy == "mvmoe":
+        if moe_trunk:
             layer["moe_ffn"] = moe(d, d, (f,))
         else:
             layer["ffn"] = {"Dense_0": dense(d, f), "Dense_1": dense(f, d)}
@@ -183,21 +226,18 @@ def random_params_numpy(
             if p is not None:
                 layer[name] = p
         layers[f"layer_{i}"] = layer
-    if policy == "mvmoe":  # the layers sit at the top, named moe_layer_{i}
+    if moe_trunk:  # the layers sit at the top, named moe_layer_{i}
         tree.update({f"moe_{name}": layer for name, layer in layers.items()})
     else:
         tree["encoder_net"] = layers
     tree["project_node_embeddings"] = dense(d, 3 * d, use_bias=False)
     if use_graph_context:
         tree["project_fixed_context"] = dense(d, d, use_bias=False)
-    if env_name == "tsp":
-        tree["context_embedding"] = {
-            "W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
-            "project_context": dense(2 * d, d, use_bias=False),
-        }
+    if multi:
+        tree.update({f"context_embeddings_{e}": context_embedding(e) for e in envs})
     else:
-        tree["context_embedding"] = {"project_context": dense(d + 1, d, use_bias=False)}
-    if policy == "mvmoe":
+        tree["context_embedding"] = context_embedding(env_name)
+    if moe_trunk:
         tree["pointer"] = {"project_out_moe": moe(d, d)}
     elif policy == "polynet":
         bits = max(1, int(np.ceil(np.log2(k))))

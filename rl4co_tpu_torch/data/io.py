@@ -11,13 +11,13 @@ from __future__ import annotations
 import numpy as np
 
 
-def _to_numpy(v) -> np.ndarray:
-    # tensors (possibly on the card) come back to the host first
+def to_numpy(v) -> np.ndarray:
+    """An array or a tensor (possibly on the card, brought to the host) as numpy."""
     return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
 
 
 def save_instances_npz(instances: dict, path: str) -> None:
-    np.savez(path, **{k: _to_numpy(v) for k, v in instances.items()})
+    np.savez(path, **{k: to_numpy(v) for k, v in instances.items()})
 
 
 def load_instances_npz(path: str) -> dict:

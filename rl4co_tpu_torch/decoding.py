@@ -58,6 +58,21 @@ class DecodeSpec:
             torch_dtype(self.compute_dtype)  # raises on a name that is no floating dtype
 
 
+def get_decoding_strategy(name: str, **kwargs) -> DecodeSpec:
+    """Name-based factory: the JAX package's name table."""
+    table = {
+        "greedy": dict(kind="greedy"),
+        "sampling": dict(kind="sampling"),
+        "multistart_greedy": dict(kind="greedy", multistart=True),
+        "multistart_sampling": dict(kind="sampling", multistart=True),
+        "evaluate": dict(kind="evaluate"),
+        "beam_search": dict(kind="beam_search", select_best=True),
+    }
+    if name not in table:
+        raise ValueError(f"Unknown decode type {name}. Available: {sorted(table)}")
+    return DecodeSpec(**{**table[name], **kwargs})
+
+
 def modify_logits_for_top_k_filtering(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     """Keep only top-k logits."""
     kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]

@@ -2,11 +2,16 @@
 
 from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
 from rl4co_tpu_torch.envs.routing.cvrp import CVRP
+from rl4co_tpu_torch.envs.routing.op import OP
+from rl4co_tpu_torch.envs.routing.pctsp import PCTSP, SPCTSP
 from rl4co_tpu_torch.envs.routing.tsp import TSP
 
 ENV_REGISTRY = {
     "tsp": TSP,
     "cvrp": CVRP,
+    "op": OP,
+    "pctsp": PCTSP,
+    "spctsp": SPCTSP,
 }
 
 

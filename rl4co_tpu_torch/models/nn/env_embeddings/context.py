@@ -2,7 +2,7 @@
 `rl4co_tpu/models/nn/env_embeddings/context.py`): the decode-step query is
 ``project_context`` of the current node's embedding concatenated with the
 env's state features (TSP: the first node's embedding; CVRP: the remaining
-capacity).
+capacity; OP: the remaining length budget; PCTSP: the prize still required).
 
 Modules consume ``(node_embs [B, N, D], state)`` with the batched env state.
 """
@@ -71,9 +71,39 @@ class VRPContext(nn.Module):
         return self.project_context(torch.cat([cur, remaining], dim=-1))
 
 
+class OPContext(nn.Module):
+    """current node embedding + remaining length budget (the depot's
+    adjusted budget minus the tour so far)."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 1, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        remaining = (state.max_length[:, 0] - state.tour_length)[:, None]
+        return self.project_context(torch.cat([cur, remaining], dim=-1))
+
+
+class PCTSPContext(nn.Module):
+    """current node embedding + the realised prize still required, clamped at 0."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 1, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        remaining = torch.clamp(state.prize_required - state.cur_total_prize, min=0.0)[:, None]
+        return self.project_context(torch.cat([cur, remaining], dim=-1))
+
+
 CONTEXT_EMBEDDING_REGISTRY = {
     "tsp": TSPContext,
     "cvrp": VRPContext,
+    "op": OPContext,
+    "pctsp": PCTSPContext,
+    "spctsp": PCTSPContext,
 }
 
 

@@ -35,9 +35,42 @@ class VRPInitEmbedding(nn.Module):
         return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
 
 
+class OPInitEmbedding(nn.Module):
+    """Depot (xy) and customers (xy + prize)."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(3, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        feats = torch.cat([instance["locs"], instance["prize"][..., None]], dim=-1)
+        return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
+
+
+class PCTSPInitEmbedding(nn.Module):
+    """Depot (xy) and customers (xy + expected prize + penalty): SPCTSP too
+    embeds the expected (deterministic) prize, not the realised one."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(4, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        feats = torch.cat([instance["locs"], instance["deterministic_prize"][..., None],
+                           instance["penalty"][..., None]], dim=-1)
+        return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
     "cvrp": VRPInitEmbedding,
+    "op": OPInitEmbedding,
+    "pctsp": PCTSPInitEmbedding,
+    "spctsp": PCTSPInitEmbedding,
 }
 
 

@@ -35,9 +35,11 @@ class AttentionModelPolicy(ConstructivePolicy):
     step through the fused CUDA kernel; ``"plain"`` is its plain composition
     (and the only one that takes ``mask_inner=False``).
     ``init_embedding_kwargs`` / ``context_embedding_kwargs`` go to the env's
-    embedding modules as they are (no ported embedding takes an argument yet). Subclasses replace the encoder (`_make_encoder`) or
-    the pointer head (`_make_pointer`), as MVMoE and PolyNet do; a subclass
-    that adds modules of its own moves them to `device`.
+    embedding modules as they are (no ported embedding takes an argument
+    yet). Subclasses replace the embeddings (`_add_embedding`, as the
+    multi-env policy does), the encoder (`_make_encoder`) or the pointer head
+    (`_make_pointer`), as MVMoE and PolyNet do; a subclass that adds modules
+    of its own moves them to `device`.
     """
 
     def __init__(
@@ -66,17 +68,22 @@ class AttentionModelPolicy(ConstructivePolicy):
         self.use_graph_context = use_graph_context
         self.mask_inner = mask_inner
         self.pointer_impl = pointer_impl
-        self.init_embedding = env_init_embedding(env_name, embed_dim,
-                                                 **(init_embedding_kwargs or {}))
+        self._add_embedding("init_embedding", env_init_embedding, init_embedding_kwargs)
         self.encoder_net = self._make_encoder()
-        self.context_embedding = env_context_embedding(env_name, embed_dim,
-                                                       **(context_embedding_kwargs or {}))
+        self._add_embedding("context_embedding", env_context_embedding,
+                            context_embedding_kwargs)
         self.project_node_embeddings = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         # no graph context, no projection of it (the JAX tree has no such leaf)
         self.project_fixed_context = (
             nn.Linear(embed_dim, embed_dim, bias=False) if use_graph_context else None)
         self.pointer = self._make_pointer()
         self.to(device)
+
+    def _add_embedding(self, name: str, make, kwargs: dict | None) -> None:
+        """Register the env's embedding module ``name`` (``init_embedding``
+        or ``context_embedding``), ``make(env_name, embed_dim, **kwargs)``;
+        the multi-env policy registers one per env instead."""
+        self.add_module(name, make(self.env_name, self.embed_dim, **(kwargs or {})))
 
     def _make_encoder(self) -> nn.Module | None:
         """The encoder stack `encode` runs on the initial embeddings."""

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -81,6 +81,7 @@ def evaluate_policy(
     return_actions: bool = False,
     check_solutions: bool = False,
     warmup: bool = True,
+    progress: Optional[Callable[[int, int], None]] = None,
     device="cuda",
     **method_overrides,
 ) -> dict:
@@ -100,6 +101,9 @@ def evaluate_policy(
     ``return_actions``). ``warmup``: run one discarded batch first, so that
     ``inference_time`` excludes one-off set-up (the kernels' build, the first
     launch of every operator); its wall time is reported as ``warmup_s``.
+    ``progress``: ``callback(done, total)`` after every dispatch of the sweep
+    (``done`` counts instances, the ragged tail's included), not after the
+    warm-up.
     """
     device = resolve_device(device)
     m = EVAL_METHODS.get(method)
@@ -186,6 +190,8 @@ def evaluate_policy(
         batch = {k: v[start : start + batch_size] for k, v in instances.items()}
         r, acts = run_batch(batch)
         consume(r, acts, batch, batch_size)
+        if progress is not None:
+            progress(start + batch_size, n)
     # ragged tail: padded up to batch_size with the first rows of the set (the
     # padding rows enter the batch-norm statistics, so this is part of the
     # protocol, not a convenience)
@@ -198,6 +204,8 @@ def evaluate_policy(
         }
         r, acts = run_batch(batch)
         consume(r, acts, batch, tail)
+        if progress is not None:
+            progress(n, n)
     sync()
     dt = time.perf_counter() - t0
 

@@ -10,10 +10,17 @@ Checkpointing: monitor ``val/reward`` (max), keep ``best.pt`` and
 random streams derive from (seed, stream, epoch), so a run resumed at an
 epoch boundary replays the uninterrupted schedule.
 
-Not ported (ROADMAP.md): ``profile_dir``, ``steps_per_dispatch``, ``mesh``,
-the loggers of `rl4co_tpu/loggers.py` and the ``train.py`` CLI. The JAX
-trainer's CPU-backend initialisation and key placement work around a remote
-TPU and have no counterpart.
+``steps_per_dispatch`` has the JAX meaning: an algorithm with a
+``make_train_step(batch_size, chunk)`` (`rl/multi_env.py`) runs ``chunk``
+steps per dispatch, ``chunk`` the largest divisor of the epoch's steps up to
+``steps_per_dispatch`` (default ``log_every``), and each dispatch is logged.
+For the multi-env algorithm that is the length of each env's block of steps,
+so it changes what is trained. Every other algorithm takes one
+``train_step(batch_size)`` per step.
+
+Not ported (ROADMAP.md): ``profile_dir`` and ``mesh``. The JAX trainer's
+CPU-backend initialisation and key placement work around a remote TPU and
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -52,13 +59,18 @@ class TrainerConfig:
     # this many hours (writing `last.pt`, so that `fit(resume_from=...)`
     # picks up the identical schedule).
     max_hours: Optional[float] = None
+    # Steps per dispatch for an algorithm with `make_train_step(batch_size,
+    # chunk)`: None -> the largest divisor of steps_per_epoch <= log_every;
+    # 1 -> one step per dispatch.
+    steps_per_dispatch: Optional[int] = None
 
 
 class Trainer:
     """Minimal epoch-loop trainer around an algorithm object exposing
-    ``train_step / make_eval_step / epoch_end / reseed / state_dict /
-    load_state_dict`` (`rl4co_tpu_torch.rl.reinforce.REINFORCE`). It runs on
-    the algorithm's device."""
+    ``train_step`` (or ``make_train_step``) ``/ make_eval_step / epoch_end /
+    reseed / state_dict / load_state_dict`` and ``env`` (the env it
+    generates validation sets on), such as `rl4co_tpu_torch.rl.reinforce.REINFORCE`.
+    It runs on the algorithm's device."""
 
     def __init__(self, algorithm, config: Optional[TrainerConfig] = None,
                  logger: Optional[Callable[[dict], None]] = None):
@@ -73,6 +85,17 @@ class Trainer:
 
     def fit(self, resume_from: Optional[str] = None,
             val_datasets: Optional[dict] = None):
+        """Run the training loop (`_fit`), then close the logger (its
+        ``finalize``, if it has one) however the loop ended."""
+        try:
+            return self._fit(resume_from, val_datasets)
+        finally:
+            fin = getattr(self.logger, "finalize", None)
+            if callable(fin):
+                fin()
+
+    def _fit(self, resume_from: Optional[str] = None,
+             val_datasets: Optional[dict] = None):
         """Run the training loop; returns the algorithm, which holds the
         trained policy, the optimiser, the baseline state and the step count.
 
@@ -95,7 +118,7 @@ class Trainer:
                      "batch_size": cfg.batch_size, "epochs": cfg.epochs})
 
         # Rollout-baseline setup: held-out set + the incumbent's rewards.
-        bl = algo.baseline
+        bl = getattr(algo, "baseline", None)
         if isinstance(bl, WarmupBaseline):
             bl = bl.inner
         if isinstance(bl, RolloutBaseline):
@@ -122,6 +145,9 @@ class Trainer:
                          "best_monitor": best_monitor})
 
         steps_per_epoch = max(1, cfg.train_data_size // cfg.batch_size)
+        chunk = self._pick_chunk(steps_per_epoch)
+        dispatch = (algo.make_train_step(cfg.batch_size, chunk)
+                    if hasattr(algo, "make_train_step") else None)
         eval_step = algo.make_eval_step()
 
         fit_t0 = time.perf_counter()
@@ -129,11 +155,14 @@ class Trainer:
             algo.reseed(cfg.seed, _STREAM_EPOCH, epoch)
             self._sync()
             t0 = time.perf_counter()
-            for it in range(steps_per_epoch):
-                metrics = algo.train_step(cfg.batch_size)
-                if it % cfg.log_every == 0:  # the only fetch of the loop
-                    self.logger({"epoch": epoch, "it": it,
-                                 **{k: v.item() for k, v in metrics.items()}})
+            for it in range(0, steps_per_epoch, chunk):
+                metrics = dispatch() if dispatch else algo.train_step(cfg.batch_size)
+                # the only fetches of the loop: a dispatch of several steps is
+                # logged under its last step's index
+                if chunk > 1:
+                    self.logger({"epoch": epoch, "it": it + chunk - 1, **_fetch(metrics)})
+                elif it % cfg.log_every == 0:
+                    self.logger({"epoch": epoch, "it": it, **_fetch(metrics)})
             self._sync()
             train_s = time.perf_counter() - t0
 
@@ -177,6 +206,15 @@ class Trainer:
 
         return algo
 
+    def _pick_chunk(self, steps_per_epoch: int) -> int:
+        """The largest divisor of ``steps_per_epoch`` up to the configured
+        dispatch size, or 1 when the algorithm has no ``make_train_step``."""
+        cfg = self.config
+        if cfg.steps_per_dispatch == 1 or not hasattr(self.algo, "make_train_step"):
+            return 1
+        target = min(cfg.steps_per_dispatch or cfg.log_every, steps_per_epoch)
+        return max(c for c in range(1, target + 1) if steps_per_epoch % c == 0)
+
     def test(self, datasets: Optional[dict] = None) -> dict:
         """Test phase on named datasets ``{name: instances}``; defaults to one
         freshly generated set named ``"test"``. Returns
@@ -216,6 +254,11 @@ def _ckpt_tree(algo, epoch: int, best_monitor: float, host: dict) -> dict:
     if host.get("eval_rewards") is not None:
         tree["eval_rewards"] = torch.as_tensor(host["eval_rewards"])
     return tree
+
+
+def _fetch(metrics: dict) -> dict:
+    """Tensors to Python numbers; other values (an env's name) as they are."""
+    return {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
 
 
 def _fmt(v):

@@ -69,11 +69,12 @@ def test_check_solution_validity_accepts_and_refuses():
 
 
 def test_registry_holds_tsp_only_and_names_the_roadmap():
-    # the ported envs (TSP, and CVRP since the POMO slice; the name dates from
-    # when TSP was the only one); the rest raise
-    assert sorted(ENV_REGISTRY) == ["cvrp", "tsp"]
+    # the ported envs (TSP; CVRP since the POMO slice; OP, PCTSP and SPCTSP
+    # since the mixed-env slice; the name dates from when TSP was the only
+    # one); the rest raise
+    assert sorted(ENV_REGISTRY) == ["cvrp", "op", "pctsp", "spctsp", "tsp"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_env("op", num_loc=10)
+        get_env("atsp", num_loc=10)
 
 
 def test_generate_is_seeded_and_in_range():

@@ -185,12 +185,14 @@ def test_tsp_context_at_first_and_later_steps(steps):
 
 
 def test_embedding_registries_hold_tsp_only():
-    # the ported envs' embeddings (TSP, and CVRP since the POMO slice; the name
-    # dates from when TSP was the only one); the rest raise
-    assert sorted(INIT_EMBEDDING_REGISTRY) == ["cvrp", "tsp"]
-    assert sorted(CONTEXT_EMBEDDING_REGISTRY) == ["cvrp", "tsp"]
+    # the ported envs' embeddings (TSP; CVRP since the POMO slice; OP, PCTSP
+    # and SPCTSP since the mixed-env slice; the name dates from when TSP was
+    # the only one); the rest raise
+    ported = ["cvrp", "op", "pctsp", "spctsp", "tsp"]
+    assert sorted(INIT_EMBEDDING_REGISTRY) == ported
+    assert sorted(CONTEXT_EMBEDDING_REGISTRY) == ported
     with pytest.raises(NotImplementedError):
-        env_context_embedding("op", D)
+        env_context_embedding("atsp", D)
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["single", "grouped"])
