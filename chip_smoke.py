@@ -26,6 +26,12 @@ BASELINE.json's NAR configuration, which reaches no pointer kernel: DeepACO's
 JAX-initialised weights on TSP-500, greedy and the Ant System with the host
 local search, held to the JAX package's costs; DeepACO's loss and every
 gradient on the JAX package's replayed tours; DeepACO and GFACS trained
+through the train command line. Then the multi-task VRP family at N 50: AM
+with seeded weights on CVRPTW, SDVRP (its dynamic embedding: the cache tiled
+per start, new K/V at every step), PDP, mTSP and SHPP, and POMO on MTVRP's
+mixed 16 variants, held to the JAX package's CPU costs of the same weights
+and instances; POMO's and AM-on-SDVRP's loss and every gradient on the JAX
+package's replayed actions; MVMoE-POMO on MTVRP and AM on SDVRP trained
 through the train command line. Every phase prints one JSON line; any
 failure is a traceback and a non-zero exit. Without a card it exits non-zero
 and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
@@ -34,8 +40,8 @@ script, while a kernel is being worked on.
 Weights are random, made from a seed, except the checkpoints' and the
 multi-env and DeepACO golden files'; evaluation instances are the committed
 `data/tsp/test50_seed1234.npz`, `data/tsp/test100_seed1234.npz` and
-`data/cvrp/test50_seed1234.npz` and the golden OP/PCTSP and TSP-500
-instances; other TSP-500 and OP instances and training batches are generated
+`data/cvrp/test50_seed1234.npz` and the golden OP/PCTSP, TSP-500 and
+multi-task VRP instances; other TSP-500 and OP instances and training batches are generated
 on the card. The local search is host C++, built with g++ like the kernels.
 Needs numpy, torch, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 """
@@ -149,6 +155,18 @@ CASES = [
     (512, None, 21, 128, 8, "one_column"),
     (409, 20, 21, 128, 8, 0.7),
     (409, 20, 21, 128, 8, "one_column"),
+    # the multi-task VRP family at N 51 (50 customers + the depot): AM greedy
+    # on the routing envs (1024) and an AM train step on SDVRP (512); SDVRP's
+    # multistart on 256 x 50 rows, the cache tiled per start so that every
+    # row has its own K/V; CVRPTW's multistart (256 x 50 queries); POMO on
+    # MTVRP-50 (512 x 50 queries) under masks of real MTVRP states (time
+    # windows, backhauls, limits, open routes: sparse rows, the depot alone
+    # on finished ones)
+    (1024, None, 51, 128, 8, 0.7),
+    (512, None, 51, 128, 8, "cvrp_like"),
+    (12800, None, 51, 128, 8, "cvrp_like"),
+    (256, 50, 51, 128, 8, "cvrp_like"),
+    (512, 50, 51, 128, 8, "mtvrp"),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -164,6 +182,11 @@ EXTRA_TIMES = [
     ("pointer_step_single", (512, None, 21, 128, 8)),    # a mixed OP/PCTSP-20 train step
     ("pointer_step_single", (1024, None, 21, 128, 8)),   # ... its greedy validation dispatch
     ("pointer_step_grouped", (409, 20, 21, 128, 8)),     # OP-20 multistart greedy, eval CLI
+    ("pointer_step_single", (1024, None, 51, 128, 8)),   # AM greedy, the routing envs at N 50
+    ("pointer_step_single", (512, None, 51, 128, 8)),    # an AM train step on SDVRP-50
+    ("pointer_step_single", (12800, None, 51, 128, 8)),  # SDVRP's tiled multistart, 256 x 50
+    ("pointer_step_grouped", (256, 50, 51, 128, 8)),     # CVRPTW-50 multistart greedy
+    ("pointer_step_grouped", (512, 50, 51, 128, 8)),     # POMO on MTVRP-50, multistart greedy
 ]
 
 
@@ -210,6 +233,8 @@ def make_case(rs, b, l, n, d, h, feasible, device):
         mask[..., 0] = False
         depot_only = ~mask.any(axis=-1) | (rs.random_sample(mshape[:-1]) < 0.2)
         mask[depot_only] = np.arange(n) == 0
+    elif feasible == "mtvrp":
+        mask = mtvrp_masks(rs, mshape[:-1], n, device)
     else:
         mask = rs.random_sample(mshape) < feasible
         mask[..., 0] = True
@@ -1954,21 +1979,311 @@ def check_deepaco_gradients(device):
 
 def train_cli_nar(device, tmp, model, steps, batch=12, val=12, num_loc=500):
     """``--model deepaco|gfacs --env tsp --num-loc 500`` through the train
-    CLI in-process: ``steps`` steps at ``batch`` (`runs/nar_tsp500.py`'s), one
-    epoch, the trainer's ACO validation on ``val`` instances; then one more
-    step under the profiler, with the peak device memory of that step.
-    Launch counts start at 0 just before `main` and are read just after."""
-    from rl4co_tpu_torch import train
+    CLI in-process (`train_cli`): ``steps`` steps at ``batch``
+    (`runs/nar_tsp500.py`'s), one epoch, the trainer's ACO validation on
+    ``val`` instances, no pointer kernel launched."""
     from rl4co_tpu_torch.models.zoo.deepaco import DeepACO
+
+    report, launches = train_cli(device, tmp, model, "tsp", num_loc,
+                                 ["--batch-size", str(batch), "--train-size", str(steps * batch),
+                                  "--val-size", str(val)], steps, DeepACO)
+    assert sum(launches.values()) == 0, launches
+    algo = report.pop("algo")
+    return {"model": f"{model} NARGNN embed 64, 15 GNN layers, TSP-{num_loc}, "
+                     f"{algo.n_ants_train} ants, Adam 1e-4, f32", **report}, launches
+
+
+# ------------------------------ the multi-task VRP family at N 50 (+ depot)
+
+# AM (Kool et al.'s widths) on 1 024 instances of each routing env in one
+# dispatch, and multistart greedy (50 starts) on the first 256 of the two
+# envs with CVRP's starts; POMO (Kwon et al.'s) on 1 024 MTVRP-50 instances of
+# the "all" preset in dispatches of 512. Weights: `random_params_numpy` at the
+# golden files' seed; instances and JAX CPU costs: the golden files
+# (`python tests/test_torch_env_mtvrp.py`). Held as the checkpoints are: the
+# mean within ROUTING_MEAN_RTOL of the JAX mean, ROUTING_SAME_SHARE of the
+# costs within ROUTING_COST_RTOL, every tour valid.
+ROUTING_ENVS = ("cvrptw", "sdvrp", "pdp", "mtsp", "shpp")
+ROUTING_MULTISTART = ("cvrptw", "sdvrp")
+ROUTING_MEAN_RTOL, ROUTING_COST_RTOL, ROUTING_SAME_SHARE = 1e-4, 1e-5, 0.99
+POMO_ARCH = dict(num_encoder_layers=6, normalization="instance", use_graph_context=False)
+
+
+def golden_npz(name):
+    with np.load(os.path.join(GOLDEN, name)) as f:
+        return {k: f[k] for k in f.files}
+
+
+def by_prefix(flat, prefix):
+    """``{"<prefix>/<key>": array}`` -> ``{key: array}``."""
+    return {k[len(prefix) + 1:]: v for k, v in flat.items() if k.startswith(prefix + "/")}
+
+
+def mtvrp_masks(rs, shape, n, device):
+    """Masks ``shape + (n,)`` of real MTVRP-(n-1) states (preset ``all``: time
+    windows, backhauls, limits, open routes): each row's instance is walked
+    by random feasible actions for a number of steps drawn in [0, 2(n-1));
+    finished rows see the depot alone."""
+    from rl4co_tpu_torch.envs import get_env
+
+    rows = int(np.prod(shape))
+    env = get_env("mtvrp", num_loc=n - 1)
+    gen = torch.Generator(device=device).manual_seed(int(rs.randint(2**31)))
+    state = env.reset(env.generate(rows, gen, device=device))
+    stop = torch.from_numpy(rs.randint(0, env.max_steps, size=rows)).to(device)
+    out = torch.zeros((rows, n), dtype=torch.bool, device=device)
+    for t in range(env.max_steps):
+        mask = env.action_mask(state)
+        out[stop == t] = mask[stop == t]
+        scores = torch.where(mask, torch.rand(mask.shape, generator=gen, device=device), -1.0)
+        state = env.step(state, scores.argmax(dim=-1))
+    return out.reshape(*shape, n).cpu().numpy()
+
+
+def hold_costs(cost, ref, what):
+    """Per-instance costs against the JAX CPU costs at the routing tolerances."""
+    assert cost.shape == ref.shape and np.isfinite(cost).all(), (what, cost.shape, ref.shape)
+    rel = np.abs(cost - ref) / np.abs(ref)
+    mean, ref_mean = float(cost.mean()), float(ref.mean())
+    mean_rel = abs(mean - ref_mean) / abs(ref_mean)
+    same = float((rel <= ROUTING_COST_RTOL).mean())
+    assert mean_rel <= ROUTING_MEAN_RTOL, f"{what}: mean off by {mean_rel:.2e}"
+    assert same >= ROUTING_SAME_SHARE, f"{what}: only {same:.4f} of costs within 1e-5"
+    return {"instances": len(ref), "mean_cost": mean, "reference_mean_cost": ref_mean,
+            "mean_rel_err": mean_rel, "share_within_1e-5": same,
+            "share_within_1e-4": float((rel <= 1e-4).mean()), "max_rel_err": float(rel.max())}
+
+
+def routing_policy(name, device, seed, pointer_impl="kernel", **arch):
+    """AM (or POMO with ``arch``) on ``name`` at full width, the golden seed's
+    weights, in eval mode on ``device``."""
+    from rl4co_tpu_torch.convert import load_params, random_params_numpy
+    from rl4co_tpu_torch.models import AttentionModelPolicy
+
+    policy = AttentionModelPolicy(env_name=name, device=device, pointer_impl=pointer_impl,
+                                  **arch)
+    return load_params(policy, random_params_numpy(seed, env_name=name, **arch)).eval()
+
+
+def check_xla_tanh(device, seed=5):
+    """`decoding.xla_tanh` (the JAX package's f32 tanh, held bit for bit to
+    `jnp.tanh` on the CPU by `tests/test_torch_decoding.py`) gives on the card
+    what it gives on the CPU, bit for bit: every f32 from 5 to 8.5, both
+    signs, where clipped logits sit within a few ulps of the clip, and 2
+    million spread over [-9.5, 9.5]."""
+    from rl4co_tpu_torch.decoding import xla_tanh
+
+    window = np.arange(np.float32(5.0).view(np.int32), np.float32(8.5).view(np.int32),
+                       dtype=np.int32).view(np.float32)
+    spread = np.random.RandomState(seed).uniform(-9.5, 9.5, 2_000_000).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([window, -window, spread]))
+    want = xla_tanh(x).numpy()
+    got = xla_tanh(x.to(device)).cpu().numpy()
+    differ = int((got != want).sum())
+    assert differ == 0, f"xla_tanh differs between the card and the CPU in {differ} values"
+    return {"values": len(want), "differ": differ}
+
+
+def drive_golden_routing(device):
+    """AM on CVRPTW-50, SDVRP-50, PDP-50, mTSP-50 (5 agents) and SHPP-50:
+    greedy on 1 024 in one dispatch, multistart greedy on 256 of CVRPTW (the
+    grouped kernel, 50 queries per instance) and SDVRP (its dynamic embedding:
+    the cache tiled per start, the single-query kernel on 12 800 rows with new
+    K/V at every step), `evaluate_policy` with `check_solutions`. Launch
+    counts start at 0 before each dispatch and are read after it, with the
+    shapes each kernel was launched at."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    insts, costs = golden_npz("routing_envs_instances.npz"), golden_npz("routing_envs_costs.npz")
+    seed = int(costs["seed"])
+    report, total = {}, {k: 0 for k in LAUNCHES}
+    shapes, undo = record_launch_shapes()
+    try:
+        for name in ROUTING_ENVS:
+            env = get_env(name, num_loc=50)
+            inst, policy = by_prefix(insts, name), routing_policy(name, device, seed)
+            for method in ("greedy", "multistart_greedy") if name in ROUTING_MULTISTART \
+                    else ("greedy",):
+                ref = costs[f"{name}/{method}"]
+                dispatch = int(costs[f"{name}/{method}/dispatch"])
+                batch = {k: v[:len(ref)] for k, v in inst.items()}
+                del shapes[:]
+                reset_launches()
+                res = evaluate_policy(env, policy, batch, method, batch_size=dispatch,
+                                      check_solutions=True, warmup=False, device=device)
+                counts = dict(LAUNCHES)
+                grouped = method == "multistart_greedy" and not policy.has_dynamic_embedding
+                kernel = "pointer_step_grouped" if grouped else "pointer_step_single"
+                want = {k: 0 for k in LAUNCHES}
+                want[kernel] = env.max_steps  # one dispatch: one launch per decode step
+                assert counts == want, f"{name}/{method}: launches {counts}, expected {want}"
+                rows = dispatch * (env.get_num_starts() if method != "greedy" else 1)
+                want_shape = ((kernel, dispatch, env.get_num_starts(), env.num_actions)
+                              if grouped else (kernel, rows, None, env.num_actions))
+                assert set(shapes) == {want_shape}, (name, method, set(shapes))
+                for k in total:
+                    total[k] += counts[k]
+                report[f"{name}/{method}"] = {
+                    **hold_costs(-res["rewards"], ref, f"{name}/{method}"),
+                    "dispatch": dispatch, "kernel_shape": list(want_shape),
+                    "tours_valid": 1.0, "seconds_with_validity_check": res["inference_time"],
+                    "launches": counts}
+    finally:
+        undo()
+    return report, total
+
+
+def drive_golden_pomo_mtvrp(device):
+    """POMO on MTVRP-50 (preset ``all``): multistart greedy with 50 starts on
+    the 1 024 golden instances in dispatches of 512 (the grouped kernel at B
+    512, L 50, N 51 under the 16 variants' masks), every tour checked; costs
+    overall and per variant against the JAX CPU costs."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.envs.routing.mtvrp import variant_name
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    inst, costs = golden_npz("pomo_mtvrp50_instances.npz"), golden_npz("pomo_mtvrp50_costs.npz")
+    env = get_env("mtvrp", num_loc=50)
+    policy = routing_policy("mtvrp", device, int(costs["seed"]), **POMO_ARCH)
+    ref, dispatch = costs["multistart_greedy"], int(costs["multistart_greedy/dispatch"])
+    reset_launches()
+    res = evaluate_policy(env, policy, inst, "multistart_greedy", batch_size=dispatch,
+                          check_solutions=True, warmup=False, device=device)
+    counts = dict(LAUNCHES)
+    want = {"pointer_step_single": 0,
+            "pointer_step_grouped": len(ref) // dispatch * env.max_steps}
+    assert counts == want, f"POMO MTVRP: launches {counts}, expected {want}"
+    cost = -res["rewards"]
+    names = variant_name(inst)
+    variants = {v: {"instances": int((names == v).sum()),
+                    "mean_cost": float(cost[names == v].mean()),
+                    "reference_mean_cost": float(ref[names == v].mean())}
+                for v in sorted(set(names))}
+    assert len(variants) == 16, sorted(variants)
+    profiled = profile_dispatch(env, policy, inst, device, "multistart_greedy", dispatch)
+    return {"model": "POMO 128/8/6/512 instance norm, MTVRP-50 preset all, random weights "
+                     f"(seed {int(costs['seed'])})",
+            "method": "multistart_greedy", "dispatch": dispatch,
+            **hold_costs(cost, ref, "POMO MTVRP-50"), "variants": variants,
+            "tours_valid": 1.0, "seconds_with_validity_check": res["inference_time"],
+            "profiled_dispatch": profiled, "launches": counts}, counts
+
+
+def replayed_gradients(device, make_algo, inst, actions, grads_file, ref_loss, kernel, steps):
+    """``make_algo(impl)`` on the kernel and the plain path (same weights)
+    replays ``actions`` on ``inst`` under grad; both losses are
+    backpropagated. The kernel path launches ``kernel`` once per decode step
+    (``steps``; counted from 0, returned under ``launches``), the plain one
+    nothing. Loss and every gradient: the kernel
+    path against the plain path (`compare_gradients`) and against the JAX
+    package's (`check_gradients`, the loss at LOSS_RTOL of the mean magnitude
+    of its terms: the advantage-weighted sum cancels)."""
+    from rl4co_tpu_torch.convert import convert_params, load_params_npz
     from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
 
-    log = os.path.join(tmp, f"{model}.jsonl")
-    argv = ["--model", model, "--env", "tsp", "--num-loc", str(num_loc),
-            "--batch-size", str(batch),
-            "--train-size", str(steps * batch), "--epochs", "1", "--val-size", str(val),
-            "--ckpt-dir", os.path.join(tmp, model), "--log-file", log,
-            "--device", str(device)]
-    done, undo = instrument_updates(DeepACO)
+    algos = {impl: make_algo(impl) for impl in ("kernel", "plain")}
+    live = {impl: a.policy for impl, a in algos.items()}
+    losses, outs, ms, launches = {}, {}, {}, {}
+    for impl, algo in algos.items():
+        reset_launches()
+        (loss, (_, out)), ms[impl] = sync_ms(lambda: algo.loss(inst, replay_actions=actions))
+        _, backward_ms = sync_ms(loss.backward)
+        want = {k: 0 for k in LAUNCHES}
+        if impl == "kernel":
+            want[kernel] = steps
+            ms["backward"] = backward_ms
+        launches[impl] = dict(LAUNCHES)
+        assert launches[impl] == want, (impl, launches[impl], want)
+        assert np.array_equal(out.actions.cpu().numpy(), np.asarray(actions))
+        losses[impl], outs[impl] = loss, out
+    paths = compare_gradients(live, losses["kernel"], losses["plain"])
+    want = {k: v.to(device) for k, v in convert_params(load_params_npz(
+        os.path.join(GOLDEN, grads_file))).items()}
+    out = outs["kernel"]
+    advantage = out.reward - out.reward.mean()  # the scale of the loss's terms
+    scale = float((advantage * out.log_likelihood).detach().abs().mean())
+    jax_side = check_gradients({n: p.grad for n, p in live["kernel"].named_parameters()}, want,
+                               losses["kernel"].item(), ref_loss,
+                               what="the port and the JAX package", loss_scale=scale)
+    return live, {"loss": losses["kernel"].item(), "reference_loss": ref_loss,
+                  "loss_ms": ms["kernel"], "backward_ms": ms["backward"],
+                  "kernel_against_plain": paths, "kernel_against_jax": jax_side,
+                  "launches": launches["kernel"]}
+
+
+def check_pomo_mtvrp_gradients(device):
+    """POMO's loss and every gradient at full width on the golden file's
+    first two MTVRP-50 instances x 50 starts, the JAX greedy actions
+    replayed (the grouped kernel under grad, K3's recompute backward)."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.pomo import POMO
+
+    inst, costs = golden_npz("pomo_mtvrp50_instances.npz"), golden_npz("pomo_mtvrp50_costs.npz")
+    actions = costs["replay/actions"]
+    few = {k: v[:actions.shape[0] // 50] for k, v in inst.items()}
+    env = get_env("mtvrp", num_loc=50)
+
+    def make_algo(impl):
+        policy = routing_policy("mtvrp", device, int(costs["seed"]), pointer_impl=impl,
+                                **POMO_ARCH).train()
+        return POMO(env, policy=policy, train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+
+    _, report = replayed_gradients(device, make_algo, few, actions, "pomo_mtvrp50_grads.npz",
+                                   float(costs["replay/loss"]), "pointer_step_grouped",
+                                   env.max_steps)
+    return {"instances": len(few["locs"]), "starts": 50, **report}
+
+
+def check_am_sdvrp_gradients(device):
+    """AM's REINFORCE loss and every gradient at full width on the golden
+    file's 8 SDVRP-50 instances, the JAX package's sampled tours replayed
+    against their mean reward: the single-query kernel on new K/V at every
+    step under grad; ``dynamic_embedding.projection`` must get a gradient,
+    and a nonzero one, through K3's backward."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    insts, costs = golden_npz("routing_envs_instances.npz"), golden_npz("routing_envs_costs.npz")
+    replay = by_prefix(costs, "sdvrp/replay")
+    actions = replay["actions"]
+    inst = {k: v[:len(actions)] for k, v in by_prefix(insts, "sdvrp").items()}
+    env = get_env("sdvrp", num_loc=50)
+    values = torch.full((len(actions),), float(replay["baseline"]), device=device)
+
+    def make_algo(impl):
+        policy = routing_policy("sdvrp", device, int(costs["seed"]), pointer_impl=impl).train()
+        return REINFORCE(env, policy, baseline=given_baseline(values),
+                         train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+
+    live, report = replayed_gradients(device, make_algo, inst, actions, "am_sdvrp50_grads.npz",
+                                      float(replay["loss"]), "pointer_step_single",
+                                      env.max_steps)
+    proj = live["kernel"].dynamic_embedding.projection.weight.grad
+    assert proj is not None and proj.abs().max().item() > 0, "no gradient reached the projection"
+    return {"instances": len(actions), "projection_grad_max_abs": proj.abs().max().item(),
+            **report}
+
+
+def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented):
+    """``--model <model> --env <name> --num-loc <num_loc> <argv_tail>``
+    through the train CLI in-process, one epoch: every train step
+    (``instrumented.update``) synchronised, timed and its launches counted;
+    then one more step under the profiler, with the peak device memory of
+    that step. Launch counts start at 0 just before `main` and are read just
+    after. The report holds the trained algorithm under ``algo``."""
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    log = os.path.join(tmp, f"{model}-{name}.jsonl")
+    argv = ["--model", model, "--env", name, "--num-loc", str(num_loc), *argv_tail,
+            "--epochs", "1", "--ckpt-dir", os.path.join(tmp, f"{model}-{name}"),
+            "--log-file", log, "--device", str(device)]
+    done, undo = instrument_updates(instrumented)
     t0 = time.perf_counter()
     try:
         reset_launches()
@@ -1977,22 +2292,21 @@ def train_cli_nar(device, tmp, model, steps, batch=12, val=12, num_loc=500):
     finally:
         undo()
     cli_s = time.perf_counter() - t0
-    assert sum(launches.values()) == 0, launches
     assert len(done) == steps, len(done)
     for s in done:
         assert all(np.isfinite(v) for v in s["metrics"].values()), s["metrics"]
     epoch = [r for r in read_jsonl(log) if "val/reward" in r][-1]
     assert np.isfinite(epoch["val/reward"])
-    assert os.path.exists(os.path.join(tmp, model, "last.pt"))
-    inst = algo.env.generate(batch, algo.generator, device)
+    assert os.path.exists(os.path.join(tmp, f"{model}-{name}", "last.pt"))
+    inst = algo.env.generate(int(argv[argv.index("--batch-size") + 1]), algo.generator, device)
     torch.cuda.reset_peak_memory_stats()
     _, busy, n_launches, top = device_profile(lambda: algo.update(inst))
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(s["ms"] for s in done)
-    return {"model": f"{model} NARGNN embed 64, 15 GNN layers, TSP-{num_loc}, "
-                     f"{algo.n_ants_train} ants, Adam 1e-4, f32",
-            "argv": argv, "steps": len(done), "step_ms_runs": [s["ms"] for s in done],
-            "step_ms_median": ms, "metrics_per_step": [s["metrics"] for s in done],
+    return {"algo": algo, "argv": argv, "steps": len(done),
+            "step_ms_runs": [s["ms"] for s in done], "step_ms_median": ms,
+            "metrics_per_step": [s["metrics"] for s in done],
+            "launches_per_step": [s["launches"] for s in done],
             "val_cost": -epoch["val/reward"], "epoch_s": epoch["time/epoch_s"],
             "cli_seconds": cli_s,
             "profiled_step": {"device_busy_ms": busy, "device_launches": n_launches,
@@ -2143,6 +2457,59 @@ def main() -> int:
         emit({"phase": "cli_train_gfacs_tsp500", "card": smi, **report})
     nar_seconds = time.perf_counter() - t_nar
 
+    # 11. the multi-task VRP family at N 50: AM on five routing envs and POMO
+    # on MTVRP held to the JAX CPU costs; POMO's and AM-on-SDVRP's gradients
+    # held to the JAX package's; MVMoE-POMO on MTVRP and AM on SDVRP trained
+    # through the train command line
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    t_vrp = time.perf_counter()
+    report, routing_launches = drive_golden_routing(device)
+    sdvrp_env = get_env("sdvrp", num_loc=50)
+    sdvrp = by_prefix(golden_npz("routing_envs_instances.npz"), "sdvrp")
+    profiled = profile_dispatch(sdvrp_env, routing_policy(
+        "sdvrp", device, int(golden_npz("routing_envs_costs.npz")["seed"])), sdvrp, device,
+        "multistart_greedy", 256)
+    emit({"phase": "golden_routing_envs", "card": smi,
+          "model": "AM 128/8/3/512 batch norm, random weights, N 50",
+          "xla_tanh_card_against_cpu": check_xla_tanh(device),
+          "tolerances": {"mean_rtol": ROUTING_MEAN_RTOL, "cost_rtol": ROUTING_COST_RTOL,
+                         "same_share": ROUTING_SAME_SHARE},
+          "dispatches": report, "profiled_sdvrp_multistart_dispatch": profiled,
+          "launches": routing_launches})
+    report, pomo_mtvrp_launches = drive_golden_pomo_mtvrp(device)
+    emit({"phase": "golden_pomo_mtvrp50", "card": smi, **report})
+    with tempfile.TemporaryDirectory() as tmp:
+        gradients = check_pomo_mtvrp_gradients(device)
+        pomo_replay_launches = gradients["launches"]
+        report, mvmoe_mtvrp_launches = train_cli(
+            device, tmp, "mvmoe-pomo", "mtvrp", 50, ["--batch-size", "64", "--train-size",
+                                                     "256", "--val-size", "64"], 4, REINFORCE)
+        del report["algo"]
+        # MVMoE's pointer head computes through `pointer_logits`: no kernel
+        assert sum(mvmoe_mtvrp_launches.values()) == 0, mvmoe_mtvrp_launches
+        emit({"phase": "train_pomo_mtvrp50", "card": smi,
+              "replayed_loss_and_gradients": gradients,
+              "model": "MVMoE-POMO 128/8/6/512, 4 experts top-2, instance norm, MTVRP-50 "
+                       "preset all, 50 starts, bf16-mixed, Adam 1e-4",
+              **report, "launches": {k: pomo_replay_launches[k] + mvmoe_mtvrp_launches[k]
+                                     for k in launches}})
+        gradients = check_am_sdvrp_gradients(device)
+        sdvrp_replay_launches = gradients["launches"]
+        report, am_sdvrp_launches = train_cli(
+            device, tmp, "am", "sdvrp", 50, ["--batch-size", "512", "--train-size", "2048",
+                                              "--val-size", "256"], 4, REINFORCE)
+        del report["algo"]
+        per_step = {"pointer_step_single": 2 * sdvrp_env.max_steps, "pointer_step_grouped": 0}
+        assert all(s == per_step for s in report["launches_per_step"]), report
+        emit({"phase": "train_am_sdvrp50", "card": smi,
+              "replayed_loss_and_gradients": gradients,
+              "model": "AM 128/8/3/512 batch norm + SDVRP's dynamic embedding, SDVRP-50, "
+                       "rollout baseline behind its warm-up, bf16-mixed, Adam 1e-4",
+              **report, "launches": {k: sdvrp_replay_launches[k] + am_sdvrp_launches[k]
+                                     for k in launches}})
+    vrp_seconds = time.perf_counter() - t_vrp
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -2181,6 +2548,22 @@ def main() -> int:
                          ("training_cli_gfacs_tsp500", gfacs_launches)):
         assert sum(counts.values()) == 0, (path, counts)
         by_path[path] = counts
+    # the multi-task VRP family: K2 on the greedy dispatches, SDVRP's tiled
+    # multistart (fresh K/V per row and step), its replay under grad and its
+    # train steps; K1 on CVRPTW's and POMO-on-MTVRP's multistart and POMO's
+    # replay under grad; MVMoE's pointer reaches no kernel
+    assert routing_launches["pointer_step_single"] > 0
+    assert routing_launches["pointer_step_grouped"] > 0
+    assert pomo_mtvrp_launches["pointer_step_grouped"] > 0
+    assert pomo_replay_launches["pointer_step_grouped"] > 0
+    assert sdvrp_replay_launches["pointer_step_single"] > 0
+    assert am_sdvrp_launches["pointer_step_single"] > 0
+    by_path["evaluation_golden_routing_envs"] = routing_launches
+    by_path["evaluation_golden_pomo_mtvrp50"] = pomo_mtvrp_launches
+    by_path["training_pomo_mtvrp50_replay"] = pomo_replay_launches
+    by_path["training_cli_mvmoe_pomo_mtvrp50"] = mvmoe_mtvrp_launches
+    by_path["training_am_sdvrp50_replay"] = sdvrp_replay_launches
+    by_path["training_cli_am_sdvrp50"] = am_sdvrp_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -2194,7 +2577,7 @@ def main() -> int:
             "library_ms": None, "shape": t["shape"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "nar_phases_seconds": nar_seconds})
+          "nar_phases_seconds": nar_seconds, "multi_task_vrp_phases_seconds": vrp_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

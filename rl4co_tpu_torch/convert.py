@@ -123,7 +123,31 @@ def load_params(policy: torch.nn.Module, tree: dict) -> torch.nn.Module:
 
 _TREE_POLICIES = ("am", "symnco", "mvmoe", "polynet", "ptrnet", "multienv", "multienv_moe",
                   "nargnn", "gfacs")
-_TREE_ENVS = ("tsp", "cvrp", "op", "pctsp", "spctsp")
+
+
+def _check_env(env_name: str) -> None:
+    """Raise for an env the port has no embeddings of: NotImplementedError
+    naming its ROADMAP.md item for a JAX env not ported yet, else ValueError."""
+    from rl4co_tpu_torch.envs import ENV_REGISTRY, UNPORTED_ENVS
+
+    if env_name in UNPORTED_ENVS:
+        raise NotImplementedError(
+            f"env '{env_name}' and its embeddings are not ported to rl4co_tpu_torch yet "
+            f"(ROADMAP.md, item {UNPORTED_ENVS[env_name]})")
+    if env_name not in ENV_REGISTRY:
+        raise ValueError(f"no env '{env_name}' in the JAX package or the port")
+
+
+def _embedding_module(kind: str, env_name: str, embed_dim: int) -> torch.nn.Module:
+    """The port's ``kind`` (init, context or dynamic) embedding of
+    ``env_name``, built on the meta device: its shapes alone, no draw from
+    torch's random stream."""
+    from rl4co_tpu_torch.models.nn import env_embeddings as emb
+
+    make = {"init": emb.env_init_embedding, "context": emb.env_context_embedding,
+            "dynamic": emb.env_dynamic_embedding}[kind]
+    with torch.device("meta"):
+        return make(env_name, embed_dim)
 
 
 def random_params_numpy(
@@ -146,7 +170,10 @@ def random_params_numpy(
 ) -> dict:
     """A ``params`` tree (without the outer ``"params"`` key) of ``policy``
     (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"`` on ``env_name``,
-    one of ``tsp``, ``cvrp``, ``op``, ``pctsp`` and ``spctsp``;
+    any env of the port's registry: its init, context and dynamic
+    embeddings are read from the port's modules, which carry the Flax
+    names; a JAX env not ported yet raises `NotImplementedError` with its
+    ROADMAP.md item;
     ``"multienv"`` or ``"multienv_moe"`` over ``env_names``; ``"ptrnet"``
     with ``embed_dim`` and ``hidden_dim``; ``"nargnn"`` (DeepACO's encoder)
     and ``"gfacs"`` (with its logZ head of ``z_out_dim``) with
@@ -156,11 +183,15 @@ def random_params_numpy(
     ``1/sqrt(fan_in)``, biases and MoE gates normal·0.1, norm scales
     1 + normal·0.1, ``W_placeholder`` uniform in [0, 2), PtrNet's ``v`` and
     ``decoder_input0`` uniform in [0, 0.2). The draw order is fixed (the
-    golden file depends on that of AM on TSP)."""
+    golden files depend on it), an embedding's by its module's registration
+    order, a dynamic embedding's last."""
     multi = policy in ("multienv", "multienv_moe")
     envs = tuple(env_names) if multi else (env_name,)
-    if policy not in _TREE_POLICIES or any(e not in _TREE_ENVS for e in envs):
-        raise ValueError(f"no tree for policy={policy!r} on {envs}")
+    if policy not in _TREE_POLICIES:
+        raise ValueError(f"no tree for policy={policy!r}")
+    if policy != "ptrnet":
+        for e in envs:
+            _check_env(e)
     rs = np.random.RandomState(seed)
     d, f = embed_dim, feedforward_hidden
 
@@ -206,17 +237,26 @@ def random_params_numpy(
         return {"w_gate": (0.1 * rs.standard_normal((fan_in, num_experts))).astype(np.float32),
                 "experts": experts}
 
+    def module_tree(module):
+        """The tree of one of the port's embedding modules, whose names are
+        the Flax module's: its own parameters first (TSP's ``W_placeholder``),
+        then each ``nn.Linear`` child, in the order they were registered."""
+        tree = {}
+        for name, p in module.named_parameters(recurse=False):
+            if name != "W_placeholder":
+                raise ValueError(f"no draw rule for parameter {name} of {type(module).__name__}")
+            tree[name] = (2.0 * rs.random_sample(tuple(p.shape))).astype(np.float32)
+        for name, child in module.named_children():
+            if not isinstance(child, torch.nn.Linear):
+                raise ValueError(f"no draw rule for {name} of {type(module).__name__}")
+            tree[name] = dense(child.in_features, child.out_features, child.bias is not None)
+        return tree
+
     def init_embedding(env):
-        if env == "tsp":
-            return {"init_embed": dense(2, d)}
-        features = {"cvrp": 3, "op": 3, "pctsp": 4, "spctsp": 4}[env]
-        return {"init_embed_depot": dense(2, d), "init_embed": dense(features, d)}
+        return module_tree(_embedding_module("init", env, d))
 
     def context_embedding(env):
-        if env == "tsp":
-            return {"W_placeholder": (2.0 * rs.random_sample(2 * d)).astype(np.float32),
-                    "project_context": dense(2 * d, d, use_bias=False)}
-        return {"project_context": dense(d + 1, d, use_bias=False)}
+        return module_tree(_embedding_module("context", env, d))
 
     if policy in ("nargnn", "gfacs"):
         from rl4co_tpu_torch.models.nn.env_embeddings.edge import EDGE_EMBEDDING_REGISTRY
@@ -280,4 +320,8 @@ def random_params_numpy(
         tree["pointer"] = {"project_out_kernel": kernel(d, d)}
     if policy == "symnco":
         tree["projection_head"] = {"layers_0": dense(d, d), "layers_2": dense(d, d)}
+    for e in envs:  # SDVRP's `projection`; the static embedding has no leaf
+        dynamic = module_tree(_embedding_module("dynamic", e, d))
+        if dynamic:
+            tree["dynamic_embedding"] = dynamic
     return tree

@@ -16,6 +16,80 @@ from rl4co_tpu_torch.utils.dtype import torch_dtype
 
 MASK_VALUE = -1e9
 
+# XLA's f32 tanh on the CPU (`EmitFastTanh` of its LLVM back end), which the
+# JAX package's tanh clipping runs: the input clamped to +-XLA_TANH_CLAMP (the
+# bound it takes with fused multiply-adds), a rational function of degree
+# 13/6 evaluated by Horner's rule with fused multiply-adds, inputs below
+# 4e-4 passed through. Past about |x| = 6 the clipped logits lie within a few
+# ulps of +-tanh_clipping, and there its rounding, not the logits, decides
+# which of two actions a greedy step takes; from the clamp on, it is exactly
+# +-1 and ties go to the lower index.
+XLA_TANH_CLAMP = 7.99881172180175781
+_TANH_NUMERATOR = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+                   5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+                   4.89352455891786e-03)
+_TANH_DENOMINATOR = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+                     4.89352518554385e-03)
+# device -> the coefficients as 0-dim f32 tensors on it (an elementwise op on
+# the card takes a tensor operand from there only); built once per device
+_TANH_COEFFICIENTS: dict = {}
+
+
+def _coefficients(device: torch.device):
+    """Per polynomial: its leading coefficient rounded to f32 (a Python
+    float) and the others as 0-dim f32 tensors on ``device``."""
+    if device not in _TANH_COEFFICIENTS:
+        _TANH_COEFFICIENTS[device] = tuple(
+            (torch.tensor(coeffs[0], dtype=torch.float32).item(),
+             [torch.tensor(v, dtype=torch.float32, device=device) for v in coeffs[1:]])
+            for coeffs in (_TANH_NUMERATOR, _TANH_DENOMINATOR))
+    return _TANH_COEFFICIENTS[device]
+
+
+def _horner(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    """The polynomial ``coeffs`` (`_coefficients`) at ``x2`` (f32 values held
+    in f64) by Horner's rule with f32 fused multiply-adds, one launch per
+    step: the product of two f32 is exact in f64, and the sum is rounded
+    once, to f32, as it is stored."""
+    lead, rest = coeffs
+    out = torch.empty(x2.shape, dtype=torch.float32, device=x2.device)
+    torch.add(rest[0], x2, alpha=lead, out=out)
+    for c in rest[1:]:
+        torch.addcmul(c, x2, out, out=out)
+    return out
+
+
+def _xla_tanh_values(x: torch.Tensor) -> torch.Tensor:
+    numerator, denominator = _coefficients(x.device)
+    xc = x.clamp(-XLA_TANH_CLAMP, XLA_TANH_CLAMP)
+    x2 = (xc * xc).double()
+    y = (xc * _horner(x2, numerator)) / _horner(x2, denominator)
+    return torch.where(x.abs() < 4e-4, x, y)
+
+
+class _XlaTanh(torch.autograd.Function):
+    """Forward: XLA's f32 tanh; backward: JAX's rule for it, ``(g + g·y)(1 - y)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _xla_tanh_values(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return (grad + grad * y) * (1 - y)
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``tanh`` to the bit as the JAX package computes it on the CPU
+    (`torch.tanh` differs in half of all values, by up to 5 ulps, and stays
+    below 1 up to 9.01), differentiable as JAX differentiates it."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"xla_tanh takes float32, got {x.dtype}")
+    return _XlaTanh.apply(x)
+
 
 @dataclasses.dataclass(frozen=True)
 class DecodeSpec:
@@ -104,7 +178,7 @@ def process_logits(
 ) -> torch.Tensor:
     """Logits → log-probabilities."""
     if tanh_clipping > 0:
-        logits = torch.tanh(logits) * tanh_clipping
+        logits = xla_tanh(logits) * tanh_clipping
     if mask_logits:
         if mask is None:
             raise ValueError("mask_logits=True needs a mask")

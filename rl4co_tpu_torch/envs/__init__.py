@@ -2,8 +2,13 @@
 
 from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
 from rl4co_tpu_torch.envs.routing.cvrp import CVRP
+from rl4co_tpu_torch.envs.routing.cvrptw import CVRPTW
+from rl4co_tpu_torch.envs.routing.mtsp import MTSP, SHPP
+from rl4co_tpu_torch.envs.routing.mtvrp import MTVRP
 from rl4co_tpu_torch.envs.routing.op import OP
 from rl4co_tpu_torch.envs.routing.pctsp import PCTSP, SPCTSP
+from rl4co_tpu_torch.envs.routing.pdp import PDP
+from rl4co_tpu_torch.envs.routing.sdvrp import SDVRP
 from rl4co_tpu_torch.envs.routing.tsp import TSP
 
 ENV_REGISTRY = {
@@ -12,6 +17,21 @@ ENV_REGISTRY = {
     "op": OP,
     "pctsp": PCTSP,
     "spctsp": SPCTSP,
+    "cvrptw": CVRPTW,
+    "sdvrp": SDVRP,
+    "pdp": PDP,
+    "mtsp": MTSP,
+    "shpp": SHPP,
+    "mtvrp": MTVRP,
+}
+
+
+# the JAX package's envs not ported yet -> their ROADMAP.md item (ATSP needs
+# MatNet's embeddings, which come with MatNet)
+UNPORTED_ENVS = {
+    "atsp": 14,
+    **{name: 10 for name in ("svrp", "cvrpmvc", "mpdp", "mdcpdp", "smtwtp", "ffsp", "fjsp",
+                             "jssp", "dpp", "mdpp", "flp", "mcp")},
 }
 
 
@@ -19,8 +39,10 @@ def get_env(name: str, **kwargs) -> Env:
     """Instantiate an env by registry name."""
     cls = ENV_REGISTRY.get(name)
     if cls is None:
+        item = UNPORTED_ENVS.get(name)
+        where = f"ROADMAP.md, item {item}" if item else "ROADMAP.md lists the order of the rest"
         raise NotImplementedError(
             f"Environment '{name}' is not ported yet (available: "
-            f"{sorted(ENV_REGISTRY)}); ROADMAP.md lists the order of the rest"
+            f"{sorted(ENV_REGISTRY)}); {where}"
         )
     return cls(**kwargs)

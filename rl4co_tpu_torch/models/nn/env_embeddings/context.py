@@ -98,9 +98,74 @@ class PCTSPContext(nn.Module):
         return self.project_context(torch.cat([cur, remaining], dim=-1))
 
 
+class VRPTWContext(nn.Module):
+    """current node embedding + remaining capacity + current time."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 2, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        feats = torch.stack([1.0 - state.used_capacity, state.current_time], dim=-1)
+        return self.project_context(torch.cat([cur, feats], dim=-1))
+
+
+class PDPContext(nn.Module):
+    """current node embedding alone."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        return self.project_context(gather_rows(embeddings, state.current_node))
+
+
+class MTSPContext(nn.Module):
+    """current node embedding + a projection (``proj_dynamic_feats``) of the
+    agents left, the current agent's length, the longest subtour so far and
+    the current node's distance from the depot."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.proj_dynamic_feats = nn.Linear(4, embed_dim, bias=False)
+        self.project_context = nn.Linear(2 * embed_dim, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        cur_loc = gather_by_index(state.locs, state.current_node)
+        dist_depot = torch.linalg.vector_norm(cur_loc - state.locs[:, 0], dim=-1)
+        feats = torch.stack([(state.num_agents - state.agent_idx).float(), state.current_length,
+                             state.max_subtour_length, dist_depot], dim=-1)
+        return self.project_context(torch.cat([cur, self.proj_dynamic_feats(feats)], dim=-1))
+
+
+class MTVRPContext(nn.Module):
+    """current node embedding + remaining linehaul and backhaul capacity,
+    current time, route length and the open-route flag."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 5, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        feats = torch.stack([1.0 - state.used_capacity_linehaul,
+                             1.0 - state.used_capacity_backhaul, state.current_time,
+                             state.current_route_length, state.open_route.float()], dim=-1)
+        return self.project_context(torch.cat([cur, feats], dim=-1))
+
+
 CONTEXT_EMBEDDING_REGISTRY = {
     "tsp": TSPContext,
+    "shpp": TSPContext,
     "cvrp": VRPContext,
+    "sdvrp": VRPContext,
+    "cvrptw": VRPTWContext,
+    "pdp": PDPContext,
+    "mtsp": MTSPContext,
+    "mtvrp": MTVRPContext,
     "op": OPContext,
     "pctsp": PCTSPContext,
     "spctsp": PCTSPContext,

@@ -67,6 +67,7 @@ class VRPEdgeEmbedding(TSPEdgeEmbedding):
 
 EDGE_EMBEDDING_REGISTRY = {
     "tsp": TSPEdgeEmbedding,
+    "shpp": TSPEdgeEmbedding,
     "cvrp": VRPEdgeEmbedding,
     "op": VRPEdgeEmbedding,
     "pctsp": VRPEdgeEmbedding,
@@ -74,7 +75,8 @@ EDGE_EMBEDDING_REGISTRY = {
 }
 
 # envs whose edge embedding waits for the env itself -> its ROADMAP.md item
-UNPORTED_EDGE_EMBEDDINGS = {"atsp": 10, "shpp": 10}
+# (ATSP's comes with MatNet, whose init embedding it needs)
+UNPORTED_EDGE_EMBEDDINGS = {"atsp": 14}
 
 
 def env_edge_embedding(env_name: str, embed_dim: int, **kwargs) -> nn.Module:

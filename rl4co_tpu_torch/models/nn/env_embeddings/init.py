@@ -65,9 +65,85 @@ class PCTSPInitEmbedding(nn.Module):
         return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
 
 
+class VRPTWInitEmbedding(nn.Module):
+    """Depot (xy) and customers (xy, demand, window start and end, service
+    duration): CVRPTW's times enter unscaled, up to its ``max_time``."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(6, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        feats = torch.cat([instance["locs"], instance["demand"][..., None],
+                           instance["time_windows"][:, 1:, :],
+                           instance["durations"][:, 1:, None]], dim=-1)
+        return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
+
+
+class PDPInitEmbedding(nn.Module):
+    """Depot (xy); each pickup with its delivery's coordinates (4 features);
+    each delivery alone. Rows: depot, pickups, deliveries."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed_pick = nn.Linear(4, embed_dim)
+        self.init_embed_delivery = nn.Linear(2, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        locs = instance["locs"]
+        half = locs.shape[-2] // 2
+        pick = torch.cat([locs[:, :half], locs[:, half:]], dim=-1)
+        return torch.cat([self.init_embed_depot(instance["depot"][:, None, :]),
+                          self.init_embed_pick(pick),
+                          self.init_embed_delivery(locs[:, half:])], dim=-2)
+
+
+class MTSPInitEmbedding(nn.Module):
+    """The depot (node 0 of ``locs``) and the cities embedded by two layers."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(2, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        locs = instance["locs"]
+        return torch.cat([self.init_embed_depot(locs[:, :1]),
+                          self.init_embed(locs[:, 1:])], dim=-2)
+
+
+class MTVRPInitEmbedding(nn.Module):
+    """The depot (node 0 of ``locs``, xy); customers (xy, linehaul and
+    backhaul demand, window start and end, service time). A window bound
+    above 1e17 (MTVRP's stand-in for infinity: TW off) enters as 0."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim)
+        self.init_embed = nn.Linear(7, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        locs = instance["locs"]
+        tw = instance["time_windows"][:, 1:, :]
+        tw = torch.where(tw > 1e17, 0.0, tw)
+        feats = torch.cat([locs[:, 1:], instance["demand_linehaul"][:, 1:, None],
+                           instance["demand_backhaul"][:, 1:, None], tw,
+                           instance["service_time"][:, 1:, None]], dim=-1)
+        return torch.cat([self.init_embed_depot(locs[:, :1]), self.init_embed(feats)], dim=-2)
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
+    "shpp": TSPInitEmbedding,
     "cvrp": VRPInitEmbedding,
+    "sdvrp": VRPInitEmbedding,
+    "cvrptw": VRPTWInitEmbedding,
+    "pdp": PDPInitEmbedding,
+    "mtsp": MTSPInitEmbedding,
+    "mtvrp": MTVRPInitEmbedding,
     "op": OPInitEmbedding,
     "pctsp": PCTSPInitEmbedding,
     "spctsp": PCTSPInitEmbedding,

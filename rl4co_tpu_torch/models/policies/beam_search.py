@@ -7,7 +7,9 @@ gathered by parent index inside the loop, so no backtracking pass is needed.
 Layout: flat beams are repeat-major ``[W*B]`` like multistart, and the
 decoder cache stays untiled ``[B, ...]``: the W beams of an instance are the
 grouped pointer step's query axis, one launch of ``pointer_step_grouped``
-per decode step (``pointer_step_single`` when W is 1).
+per decode step (``pointer_step_single`` when W is 1). An env with a dynamic
+embedding (SDVRP) tiles the cache per beam instead and decodes one query per
+row through ``pointer_step_single``.
 
 Which W of the ``W·A`` candidates survive is decided as `jax.lax.top_k`
 decides it: by value, ties to the lower flat index. At step 0 only beam 0 is
@@ -24,6 +26,7 @@ import torch
 
 from rl4co_tpu_torch.decoding import DecodeSpec, process_logits_spec
 from rl4co_tpu_torch.envs.base import Env
+from rl4co_tpu_torch.models.nn.env_embeddings.dynamic import DYNAMIC_EMBEDDING_REGISTRY
 from rl4co_tpu_torch.models.policies.constructive import RolloutOutput, select_best as _select_best
 from rl4co_tpu_torch.utils.ops import tree_map, batchify
 
@@ -52,6 +55,9 @@ def beam_search_rollout(
     b = next(iter(instances.values())).shape[0]
     t_steps, a = env.max_steps, env.num_actions
     cache = policy.precompute(policy.encode(instances))
+    decode_repeats = w
+    if env.name in DYNAMIC_EMBEDDING_REGISTRY:  # per-beam K/V: a tiled cache
+        cache, decode_repeats = batchify(cache, w), 1
     state = env.reset(batchify(instances, w))  # [W*B]
     device = state.done.device
 
@@ -77,7 +83,7 @@ def beam_search_rollout(
     logprobs = torch.zeros((w * b, 0), device=device)
     for _ in range(t_steps):
         mask = env.action_mask(state)
-        logits = policy.decode_step(cache, state, mask, w)
+        logits = policy.decode_step(cache, state, mask, decode_repeats)
         step_lp = process_logits_spec(logits.float(), mask, spec)
         # done beams: only the padding action stays viable, at log-probability 0
         step_lp = torch.where(state.done[:, None],

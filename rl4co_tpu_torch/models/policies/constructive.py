@@ -7,7 +7,9 @@
 The loop is a Python loop with a static trip count (``env.max_steps``) and
 done-masking. Multistart (POMO) and multi-sample expansion keep the decoder
 cache **untiled** ``[B, ...]``: the repeats of an instance become a query
-axis that shares one K/V load, and the encoder never runs per start.
+axis that shares one K/V load, and the encoder never runs per start. An env
+with a dynamic embedding (SDVRP) is the exception: its K/V change with each
+repeat's state, so its cache is tiled per repeat.
 
 Whether a rollout records an autograd graph follows the ambient grad mode,
 as everywhere in PyTorch: the loss of a training step calls `rollout` with
@@ -35,6 +37,7 @@ from rl4co_tpu_torch.decoding import (
     process_logits_spec,
 )
 from rl4co_tpu_torch.envs.base import Env
+from rl4co_tpu_torch.models.nn.env_embeddings.dynamic import DYNAMIC_EMBEDDING_REGISTRY
 from rl4co_tpu_torch.utils.device import resolve_device
 from rl4co_tpu_torch.utils.dtype import rounded_parameters, torch_dtype
 from rl4co_tpu_torch.utils.ops import batchify, unbatchify
@@ -142,7 +145,12 @@ def rollout_from_cache(
     generator: Optional[torch.Generator] = None,
     replay_actions: Optional[torch.Tensor] = None,
 ) -> RolloutOutput:
-    """Decode loop from a precomputed cache, on the cache's device."""
+    """Decode loop from a precomputed cache, on the cache's device.
+
+    With repeats (starts or samples) the cache stays untiled and the repeats
+    are the decoder's query axis, unless the env has a dynamic embedding:
+    then each repeat's K/V differ, and the cache is tiled per repeat
+    (repeat-major, as the state) and decoded one query per row."""
     first_actions = None
     num_repeats = 1
     if spec.multistart and spec.num_starts > 1:
@@ -154,13 +162,17 @@ def rollout_from_cache(
     elif spec.num_samples > 1:
         instances = batchify(instances, spec.num_samples)
         num_repeats = spec.num_samples
+    decode_repeats = num_repeats
+    if num_repeats > 1 and env.name in DYNAMIC_EMBEDDING_REGISTRY:
+        cache = batchify(cache, num_repeats)
+        decode_repeats = 1
 
     state = env.reset(instances)
     actions, logprobs_chosen = [], []
     entropy = torch.zeros_like(state.done, dtype=torch.float32)
     for t in range(env.max_steps):
         mask = env.action_mask(state)
-        logits = policy.decode_step(cache, state, mask, num_repeats)
+        logits = policy.decode_step(cache, state, mask, decode_repeats)
         logprobs = process_logits_spec(logits.float(), mask, spec)
         replay_t = replay_actions[:, t] if replay_actions is not None else None
         action, logprob = decode_action(logprobs, mask, spec, generator, replay_t)

@@ -11,8 +11,8 @@ parent's), is registered nowhere, and has the same ``state_dict`` keys: an
 optimiser built on the parent sees each parameter once, whatever env a step
 runs.
 
-OP and PCTSP have no dynamic embedding (the JAX package's `StaticEmbedding`
-holds no parameter and adds nothing), so none is ported here.
+OP and PCTSP have no dynamic embedding: the policy keeps AM's
+`StaticEmbedding`, which holds no parameter and adds nothing.
 
 The JAX package's `init_multi_env_params` and `touch_all` only make Flax
 create its lazily initialised parameters of every env; a PyTorch module has

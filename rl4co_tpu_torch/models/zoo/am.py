@@ -15,8 +15,10 @@ from torch import nn
 from rl4co_tpu_torch.models.nn.attention import PointerAttention
 from rl4co_tpu_torch.models.nn.env_embeddings import (
     env_context_embedding,
+    env_dynamic_embedding,
     env_init_embedding,
 )
+from rl4co_tpu_torch.models.nn.env_embeddings.dynamic import StaticEmbedding
 from rl4co_tpu_torch.models.nn.graph.attnnet import GraphAttentionNetwork
 from rl4co_tpu_torch.models.policies.constructive import (
     ConstructivePolicy,
@@ -72,6 +74,9 @@ class AttentionModelPolicy(ConstructivePolicy):
         self.encoder_net = self._make_encoder()
         self._add_embedding("context_embedding", env_context_embedding,
                             context_embedding_kwargs)
+        # SDVRP's remaining demands move K/V/logit keys at every step; every
+        # other env's is the parameterless `StaticEmbedding`
+        self.dynamic_embedding = env_dynamic_embedding(env_name, embed_dim)
         self.project_node_embeddings = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         # no graph context, no projection of it (the JAX tree has no such leaf)
         self.project_fixed_context = (
@@ -127,6 +132,10 @@ class AttentionModelPolicy(ConstructivePolicy):
             logit_key=logit_k,
         )
 
+    @property
+    def has_dynamic_embedding(self) -> bool:
+        return not isinstance(self.dynamic_embedding, StaticEmbedding)
+
     def decode_step(self, cache: PrecomputedCache, state, mask,
                     num_repeats: int = 1) -> torch.Tensor:
         """One decode step.
@@ -134,15 +143,25 @@ class AttentionModelPolicy(ConstructivePolicy):
         With ``num_repeats == g > 1`` the cache stays *untiled* ``[B, ...]``
         while the state/mask are flat ``[g*B, ...]`` (repeat-major): the g
         starts/samples of an instance become a query axis sharing one K/V
-        load. Logits go back flat ``[g*B, N]``.
+        load. Logits go back flat ``[g*B, N]``. An env with a dynamic
+        embedding decodes with ``num_repeats == 1`` on a cache tiled as its
+        state is: this step's K/V/logit keys are the cache's plus the
+        state's deltas, new tensors that the kernel takes as they are.
         """
         gk, gv, lk = cache.glimpse_key, cache.glimpse_val, cache.logit_key
         # the context embedding reads the untiled node embeddings for a flat
-        # repeat-major state too
+        # repeat-major state too (`gather_rows`)
         query = self.context_embedding(cache.node_embeddings, state)  # [g*B, D]
         if num_repeats == 1:
+            if self.has_dynamic_embedding:
+                dk, dv, dl = self.dynamic_embedding(state)
+                gk, gv, lk = ((c + delta).contiguous()
+                              for c, delta in ((gk, dk), (gv, dv), (lk, dl)))
             return self.pointer(query + cache.graph_context, gk, gv, lk, mask)
 
+        if self.has_dynamic_embedding:
+            raise ValueError("grouped decode needs static embeddings: an env with a dynamic "
+                             "embedding decodes on a cache tiled per repeat")
         g = num_repeats
         b, n, d = cache.node_embeddings.shape
         if self.use_graph_context:

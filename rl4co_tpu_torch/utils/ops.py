@@ -13,9 +13,12 @@ import torch
 
 
 def tree_map(fn, x):
-    """Apply ``fn`` to every tensor of a dict / dataclass / tensor tree."""
+    """Apply ``fn`` to every tensor of a dict / dataclass / tensor tree;
+    Python numbers (a cache's ``graph_context`` of 0.0) pass as they are."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if isinstance(x, (int, float)):
+        return x
     if isinstance(x, dict):
         return {k: tree_map(fn, v) for k, v in x.items()}
     if dataclasses.is_dataclass(x) and not isinstance(x, type):

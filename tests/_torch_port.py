@@ -179,3 +179,157 @@ def nar_pair(policy="nargnn", env_name="tsp", seed=0, z_out_dim=1):
 def nar_instances(env_name, seed, b, n):
     """TSP or CVRP instances as numpy arrays from a numpy seed."""
     return {"locs": random_locs(seed, b, n)} if env_name == "tsp" else random_cvrp(seed, b, n)
+
+
+# ---- the routing envs of the multi-task VRP slice (CVRPTW, SDVRP, PDP,
+# mTSP, SHPP, MTVRP): helpers shared by `tests/test_torch_env_*.py`
+
+KEY = jax.random.PRNGKey(0)
+
+
+def env_pair(name, n, **kw):
+    """(the port's env, the JAX package's) of one registry name."""
+    from rl4co_tpu.envs import get_env as jax_get_env
+    from rl4co_tpu_torch.envs import get_env
+
+    return get_env(name, num_loc=n, **kw), jax_get_env(name, num_loc=n, **kw)
+
+
+def jax_instances(jenv, seed, b):
+    """Instances generated by the JAX package, as numpy arrays."""
+    inst = jenv.generate_batch(jax.random.PRNGKey(seed), b)
+    return {k: np.asarray(v) for k, v in inst.items()}
+
+
+def to_torch(inst):
+    return {k: torch.tensor(np.asarray(v)) for k, v in inst.items()}
+
+
+def to_jax(inst):
+    return {k: jnp.asarray(v) for k, v in inst.items()}
+
+
+def am_pair(env_name, seed=0, pomo=False, **dims):
+    """The same seeded weights (`random_params_numpy` on ``env_name``) as (JAX
+    AM policy, its params, the port's on the CPU); ``pomo``: POMO's
+    deviations (instance norm, no graph context)."""
+    dims = {**SMALL, **dims}
+    arch = dict(normalization="instance", use_graph_context=False) if pomo else {}
+    tree = random_params_numpy(seed, dims["embed_dim"], dims["num_encoder_layers"],
+                               dims["feedforward_hidden"], env_name=env_name, **arch)
+    jpol = JaxPolicy(env_name=env_name, **dims, **arch)
+    tpol = TorchPolicy(env_name=env_name, device="cpu", **dims, **arch)
+    return jpol, tree_to_jax(tree), load_params(tpol, tree).eval()
+
+
+def rollout_pair(jpol, jparams, tpol, name, inst, replay=None, **spec):
+    """Both packages' rollouts of ``inst`` (numpy) under the same spec
+    (``replay``: actions for ``kind="evaluate"``); returns (JAX output with
+    numpy fields, the port's output)."""
+    from rl4co_tpu.decoding import DecodeSpec as JaxSpec
+    from rl4co_tpu.models import rollout as jax_rollout
+
+    _, jenv = env_pair(name, _num_loc(name, inst))
+    want = jax_rollout(jpol, jparams, jenv, to_jax(inst), KEY, JaxSpec(**spec),
+                       None if replay is None else jnp.asarray(replay))
+    return jax.tree_util.tree_map(np.asarray, want), port_rollout(tpol, name, inst, replay,
+                                                                  **spec)
+
+
+def port_rollout(tpol, name, inst, replay=None, **spec):
+    """The port's rollout of ``inst`` (numpy) on the CPU, without a graph."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models import rollout
+
+    tenv, _ = env_pair(name, _num_loc(name, inst))
+    with torch.no_grad():
+        return rollout(tpol, tenv, inst, DecodeSpec(**spec), device="cpu",
+                       replay_actions=None if replay is None else torch.as_tensor(replay))
+
+
+def jax_sampled(jpol, jparams, name, inst, seed=3, **spec):
+    """A JAX sampling rollout of ``inst`` (numpy fields): actions for the
+    port to replay."""
+    from rl4co_tpu.decoding import DecodeSpec as JaxSpec
+    from rl4co_tpu.models import rollout as jax_rollout
+
+    _, jenv = env_pair(name, _num_loc(name, inst))
+    out = jax_rollout(jpol, jparams, jenv, to_jax(inst), jax.random.PRNGKey(seed),
+                      JaxSpec(kind="sampling", **spec))
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+def _num_loc(name, inst):
+    """The env's ``num_loc`` of instances ``inst``: MTVRP's ``locs`` hold the
+    depot, mTSP's and SHPP's are all the nodes."""
+    n = inst["locs"].shape[1]
+    return n - 1 if name == "mtvrp" else n
+
+
+def assert_rollouts_match(want, got, reward_rtol=1e-5, ll_atol=1e-4):
+    """Equal actions, rewards within ``reward_rtol``, log-likelihoods within
+    ``ll_atol``: `test_torch_rollout.py`'s tolerances."""
+    np.testing.assert_array_equal(t2n(got.actions), want.actions)
+    np.testing.assert_allclose(t2n(got.reward), want.reward, rtol=reward_rtol, atol=1e-6)
+    np.testing.assert_allclose(t2n(got.log_likelihood), want.log_likelihood, atol=ll_atol)
+
+
+def embedding_pair(kind, env_name, seed=0, embed_dim=32):
+    """One env's init or context embedding in both packages on the same
+    weights: (JAX module, its params, the port's module on the CPU)."""
+    from rl4co_tpu.models.nn.env_embeddings import context as jctx, init as jinit
+    from rl4co_tpu_torch.convert import convert_params
+    from rl4co_tpu_torch.models.nn.env_embeddings import (
+        env_context_embedding,
+        env_init_embedding,
+    )
+
+    tree = random_params_numpy(seed, embed_dim, 1, 16, env_name=env_name)[f"{kind}_embedding"]
+    if kind == "init":
+        jmod = jinit.env_init_embedding(env_name, embed_dim)
+        tmod = env_init_embedding(env_name, embed_dim)
+    else:
+        jmod = jctx.env_context_embedding(env_name, embed_dim)
+        tmod = env_context_embedding(env_name, embed_dim)
+    tmod.load_state_dict(convert_params(tree), strict=True)
+    return jmod, {"params": jax.tree_util.tree_map(jnp.asarray, tree)}, tmod
+
+
+def check_embeddings(env_name, inst, tstates, jstates, atol=1e-5, rtol=1e-6):
+    """The init embedding of ``inst`` and the context embedding of every
+    state pair, in f32 and with the parameters rounded through bf16 (JAX:
+    `cast_floating`; the port: `rounded_parameters`, as a bf16 rollout
+    does), within ``atol`` plus ``rtol`` of the largest value: CVRPTW's
+    unscaled coordinates and times make terms in the hundreds, where one f32
+    ulp is above 1e-5, and a small output may be their difference."""
+
+    def close(got, want, what):
+        err = np.abs(got - want).max()
+        assert err <= atol + rtol * np.abs(want).max(), (what, err, np.abs(want).max())
+
+    from rl4co_tpu.utils.dtype import cast_floating
+    from rl4co_tpu_torch.utils.dtype import rounded_parameters
+
+    for bf16 in (False, True):
+        mods = {}
+        for kind in ("init", "context"):
+            jmod, jparams, tmod = embedding_pair(kind, env_name)
+            if bf16:
+                jparams = cast_floating(jparams, jnp.bfloat16)
+                rounded = rounded_parameters(tmod, torch.bfloat16)
+                with torch.no_grad():
+                    for name, p in tmod.named_parameters():
+                        p.copy_(rounded[name])
+            mods[kind] = jmod, jparams, tmod
+        jmod, jparams, tmod = mods["init"]
+        want = np.asarray(jmod.apply(jparams, to_jax(inst)), dtype=np.float32)
+        with torch.no_grad():
+            got = t2n(tmod(to_torch(inst)))
+        close(got, want, f"init bf16={bf16}")
+        jmod, jparams, tmod = mods["context"]
+        emb = np.random.RandomState(1).standard_normal(want.shape).astype(np.float32)
+        for ts, js in zip(tstates, jstates):
+            want_c = np.asarray(jmod.apply(jparams, jnp.asarray(emb), js), dtype=np.float32)
+            with torch.no_grad():
+                got_c = t2n(tmod(torch.from_numpy(emb), ts))
+            close(got_c, want_c, f"context bf16={bf16}")

@@ -123,3 +123,30 @@ def test_stacked_expert_kernels_and_gates_keep_their_layout():
     np.testing.assert_array_equal(state["moe.w_gate"].numpy(), gate)
     with pytest.raises(ValueError, match="moe/experts/Dense_0/kernel"):
         convert_params({"moe": {"experts": {"Dense_0": {"kernel": np.zeros((1, 2, 3, 4))}}}})
+
+
+@pytest.mark.parametrize("env_name", sorted(__import__("rl4co_tpu_torch.envs",
+                                                       fromlist=["ENV_REGISTRY"]).ENV_REGISTRY))
+def test_every_ported_env_gets_the_tree_of_its_flax_policy(env_name):
+    """The init, context and dynamic embeddings of each env of the port's
+    registry, read from the port's modules, give the paths and shapes of the
+    JAX package's freshly initialised AM tree, and the port's policy takes
+    the tree with no leaf left over and no parameter unset."""
+    jenv = jax_get_env(env_name, num_loc=8)
+    want = tree_to_numpy(init_policy_params(JaxPolicy(env_name=env_name, **SMALL), jenv,
+                                            jax.random.PRNGKey(0)))["params"]
+    got = random_params_numpy(0, SMALL["embed_dim"], SMALL["num_encoder_layers"],
+                              SMALL["feedforward_hidden"], env_name=env_name)
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: a.shape, t)  # noqa: E731
+    assert shapes(got) == shapes(want)
+    load_params(AttentionModelPolicy(env_name=env_name, device="cpu", **SMALL), got)
+
+
+@pytest.mark.parametrize("env_name,item", [("atsp", 14), ("svrp", 10), ("fjsp", 10)])
+def test_an_env_not_ported_raises_with_its_roadmap_item(env_name, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
+        random_params_numpy(0, env_name=env_name)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
+        random_params_numpy(0, policy="multienv", env_names=("op", env_name))
+    with pytest.raises(ValueError, match="no env"):
+        random_params_numpy(0, env_name="not-an-env")

@@ -118,3 +118,38 @@ def test_decode_spec_keeps_the_jax_fields():
     jf = {f.name for f in jdec.DecodeSpec.__dataclass_fields__.values()}
     tf = {f.name for f in tdec.DecodeSpec.__dataclass_fields__.values()}
     assert jf == tf
+
+
+def test_tanh_clipping_is_jax_tanh_to_the_bit():
+    """The port's tanh clipping computes XLA's f32 tanh: equal to `jnp.tanh`
+    bit for bit on 2 million f32 spread over [-9.5, 9.5] and on every f32
+    from 5 to 8.5 (where clipped logits sit within a few ulps of the clip);
+    exactly +-1 from 7.99881172 on, where torch's tanh resolves logits to
+    9.01, so that two saturated logits tie and greedy takes the lower index
+    in both packages (SDVRP-50's golden dispatches turned on this); the
+    gradient is JAX's ``(g + g·y)(1 - y)`` to 1 ulp (XLA fuses a multiply-add
+    there), 0 past the clamp."""
+    rs = np.random.RandomState(0)
+    spread = rs.uniform(-9.5, 9.5, 2_000_000).astype(np.float32)
+    window = np.arange(np.float32(5.0).view(np.int32), np.float32(8.5).view(np.int32),
+                       dtype=np.int32).view(np.float32)
+    xs = np.concatenate([spread, window, -window, np.float32([0.0, 3e-4, -5e-4])])
+    want = np.asarray(jnp.tanh(jnp.asarray(xs)))
+    got = t2n(tdec.xla_tanh(torch.from_numpy(xs)))
+    np.testing.assert_array_equal(got, want)
+    assert (np.abs(got[np.abs(xs) >= tdec.XLA_TANH_CLAMP]) == 1.0).all()
+    logits = np.array([[-14.879343, -8.567986, -20.0]], np.float32)
+    mask = np.ones_like(logits, dtype=bool)
+    spec = dict(kind="greedy")
+    ja, _ = jdec.decode_action(jax.random.PRNGKey(0), jdec.process_logits(
+        jnp.asarray(logits), jnp.asarray(mask), tanh_clipping=10.0), jnp.asarray(mask),
+        jdec.DecodeSpec(**spec), None)
+    ta, _ = tdec.decode_action(tdec.process_logits(torch.from_numpy(logits),
+                                                   torch.from_numpy(mask), tanh_clipping=10.0),
+                               torch.from_numpy(mask), tdec.DecodeSpec(**spec))
+    assert int(ta[0]) == int(ja[0]) == 0
+    v = np.float32([-9.0, 8.5, 1.0, -0.3, 6.5])
+    x = torch.tensor(v, requires_grad=True)
+    grad = jax.grad(lambda a: (jnp.tanh(a) * jnp.arange(1.0, 6.0)).sum())(jnp.asarray(v))
+    (tdec.xla_tanh(x) * torch.arange(1.0, 6.0)).sum().backward()
+    np.testing.assert_allclose(t2n(x.grad), np.asarray(grad), rtol=1e-6, atol=0)  # 1 ulp: XLA fuses

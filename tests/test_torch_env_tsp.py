@@ -70,9 +70,11 @@ def test_check_solution_validity_accepts_and_refuses():
 
 def test_registry_holds_tsp_only_and_names_the_roadmap():
     # the ported envs (TSP; CVRP since the POMO slice; OP, PCTSP and SPCTSP
-    # since the mixed-env slice; the name dates from when TSP was the only
-    # one); the rest raise
-    assert sorted(ENV_REGISTRY) == ["cvrp", "op", "pctsp", "spctsp", "tsp"]
+    # since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP and MTVRP
+    # since the multi-task VRP slice; the name dates from when TSP was the
+    # only one); the rest raise
+    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrptw", "mtsp", "mtvrp", "op", "pctsp", "pdp",
+                                    "sdvrp", "shpp", "spctsp", "tsp"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_env("atsp", num_loc=10)
 

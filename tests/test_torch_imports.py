@@ -48,7 +48,9 @@ def test_the_port_has_the_modules_of_the_slice():
                  "models/nn/env_embeddings/edge.py", "models/nn/graph/gnn.py",
                  "models/zoo/nargnn.py", "models/policies/nonautoregressive.py",
                  "envs/routing/local_search.py", "models/zoo/deepaco.py",
-                 "models/zoo/gfacs.py"):
+                 "models/zoo/gfacs.py", "envs/routing/cvrptw.py", "envs/routing/sdvrp.py",
+                 "envs/routing/pdp.py", "envs/routing/mtsp.py", "envs/routing/mtvrp.py",
+                 "models/nn/env_embeddings/dynamic.py", "data/solomon.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     for source in ("pointer_kernel.cu", "local_search.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", source)), source

@@ -144,6 +144,30 @@ def test_nar_models_train_two_steps_and_resume(model, tmp_path, capsys):
     capsys.readouterr()
 
 
+@pytest.mark.parametrize("model,env", [("pomo", "mtvrp"), ("am", "sdvrp")])
+def test_multi_task_vrp_envs_train_two_steps_and_resume(model, env, tmp_path, capsys):
+    """``--env mtvrp --model pomo`` (the mixed ``all`` preset: ``--num-loc``
+    is the only env argument, as in the JAX command line) and ``--env sdvrp
+    --model am`` (its dynamic embedding under bf16-mixed, the default) at
+    N 10 on the CPU: two steps at the published widths, finite losses, then
+    a second epoch resumed from `last.pt`."""
+    ckpt, log = str(tmp_path / "ckpt"), str(tmp_path / "log.jsonl")
+    args = ["--model", model, "--env", env, "--num-loc", "10", "--batch-size", "2",
+            "--train-size", "4", "--val-size", "2", "--device", "cpu", "--ckpt-dir", ckpt,
+            "--log-file", log]
+    first = main(args + ["--epochs", "1"])
+    assert first.step == 2 and first.env.name == env and first.policy.embed_dim == 128
+    assert first.env.variant_preset == "all" if env == "mtvrp" else first.policy.has_dynamic_embedding
+    second = main(args + ["--epochs", "2", "--resume-from", f"{ckpt}/last.pt"])
+    assert second.step == 4
+    records = read_jsonl(log)
+    losses = [r["loss"] for r in records if "loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(v) for v in losses)  # one record per epoch
+    assert [r["epoch"] for r in records if "val/reward" in r] == [0.0, 1.0]
+    assert all(np.isfinite(r["val/reward"]) for r in records if "val/reward" in r)
+    capsys.readouterr()
+
+
 def test_new_entry_points_refuse_to_run_without_a_card():
     """`tests/test_torch_imports.py::test_entry_points_refuse_to_run_without_a_card`
     for this slice's entry points: each defaults to the card and raises."""
