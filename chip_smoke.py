@@ -32,17 +32,22 @@ per start, new K/V at every step), PDP, mTSP and SHPP, and POMO on MTVRP's
 mixed 16 variants, held to the JAX package's CPU costs of the same weights
 and instances; POMO's and AM-on-SDVRP's loss and every gradient on the JAX
 package's replayed actions; MVMoE-POMO on MTVRP and AM on SDVRP trained
-through the train command line. Every phase prints one JSON line; any
-failure is a traceback and a non-zero exit. Without a card it exits non-zero
-and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
+through the train command line. Then AM on the rest of the routing envs
+(CVRPMVC, SVRP, mPDP, MDCPDP) held to the JAX package's CPU costs, and GLOP
+on TSP-1000 (`runs/glop_tsp1000.py`'s recipe: cheapest insertion, then 24
+rounds of segment revision by insertion and by an AM reviser on SHPP-25 that
+decodes 1 280 segments per dispatch through the single-query kernel), the
+JAX package's draws replayed and its CPU costs held. Every phase prints one
+JSON line; any failure is a traceback and a non-zero exit. Without a card it
+exits non-zero and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
 script, while a kernel is being worked on.
 
 Weights are random, made from a seed, except the checkpoints' and the
 multi-env and DeepACO golden files'; evaluation instances are the committed
 `data/tsp/test50_seed1234.npz`, `data/tsp/test100_seed1234.npz` and
-`data/cvrp/test50_seed1234.npz` and the golden OP/PCTSP, TSP-500 and
-multi-task VRP instances; other TSP-500 and OP instances and training batches are generated
-on the card. The local search is host C++, built with g++ like the kernels.
+`data/cvrp/test50_seed1234.npz`, the golden OP/PCTSP, TSP-500 and
+routing instances, and GLOP's TSP-1000 instances from a numpy seed; other
+TSP-500 and OP instances and training batches are generated on the card. The local search is host C++, built with g++ like the kernels.
 Needs numpy, torch, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 """
 
@@ -167,6 +172,14 @@ CASES = [
     (12800, None, 51, 128, 8, "cvrp_like"),
     (256, 50, 51, 128, 8, "cvrp_like"),
     (512, 50, 51, 128, 8, "mtvrp"),
+    # GLOP's reviser at TSP-1000: AM on SHPP-25 decodes the 40 segments of a
+    # dispatch of 32 as 1 280 rows, the first step forced to node 0; AM
+    # greedy on mPDP-50 (3 agents: 4 depot copies + 50, N 54) and MDCPDP-50
+    # (3 depots + 50, N 53); CVRPMVC's multistart is (256, 50, 51) above
+    (1280, None, 25, 128, 8, 0.7),
+    (1280, None, 25, 128, 8, "one_column"),
+    (1024, None, 54, 128, 8, 0.7),
+    (1024, None, 53, 128, 8, "cvrp_like"),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -187,6 +200,9 @@ EXTRA_TIMES = [
     ("pointer_step_single", (12800, None, 51, 128, 8)),  # SDVRP's tiled multistart, 256 x 50
     ("pointer_step_grouped", (256, 50, 51, 128, 8)),     # CVRPTW-50 multistart greedy
     ("pointer_step_grouped", (512, 50, 51, 128, 8)),     # POMO on MTVRP-50, multistart greedy
+    ("pointer_step_single", (1280, None, 25, 128, 8)),   # GLOP's reviser, TSP-1000, 32 x 40
+    ("pointer_step_single", (1024, None, 54, 128, 8)),   # AM greedy on mPDP-50
+    ("pointer_step_single", (1024, None, 53, 128, 8)),   # AM greedy on MDCPDP-50
 ]
 
 
@@ -2005,6 +2021,10 @@ def train_cli_nar(device, tmp, model, steps, batch=12, val=12, num_loc=500):
 # costs within ROUTING_COST_RTOL, every tour valid.
 ROUTING_ENVS = ("cvrptw", "sdvrp", "pdp", "mtsp", "shpp")
 ROUTING_MULTISTART = ("cvrptw", "sdvrp")
+# the rest of the routing envs, CVRPMVC (multistart through K1), SVRP, mPDP
+# and MDCPDP (3 agents each): `python tests/test_torch_env_svrp_mpdp.py`
+ROUTING_REST = ("cvrpmvc", "svrp", "mpdp", "mdcpdp")
+ROUTING_REST_MULTISTART = ("cvrpmvc",)
 ROUTING_MEAN_RTOL, ROUTING_COST_RTOL, ROUTING_SAME_SHARE = 1e-4, 1e-5, 0.99
 POMO_ARCH = dict(num_encoder_layers=6, normalization="instance", use_graph_context=False)
 
@@ -2054,6 +2074,62 @@ def hold_costs(cost, ref, what):
             "share_within_1e-4": float((rel <= 1e-4).mean()), "max_rel_err": float(rel.max())}
 
 
+# a tour that leaves the JAX package's where the port's two best actions lie
+# within this many nats of each other left it at a near-tie of f32 rounding
+ROUTING_TIE_ATOL = 1e-5
+
+
+def greedy_departures(env, policy, inst, jax_actions, device):
+    """The JAX package's greedy tours replayed through ``policy`` in one
+    dispatch (the encoder on all of ``inst``, as the golden dispatch): per
+    row, the first step where the port's own greedy choice leaves JAX's
+    tour (-1: never) and the log-probability gap there between the two."""
+    from rl4co_tpu_torch.decoding import DecodeSpec, process_logits_spec
+
+    spec = DecodeSpec(kind="greedy", tanh_clipping=10.0)
+    inst = {k: torch.as_tensor(v).to(device) for k, v in inst.items()}
+    acts = torch.as_tensor(jax_actions.astype(np.int64)).to(device)
+    with torch.no_grad():
+        cache = policy.precompute(policy.encode(inst))
+        state = env.reset(inst)
+        first = torch.full((acts.shape[0],), -1, dtype=torch.long, device=device)
+        gap = torch.zeros((acts.shape[0],), device=device)
+        for t in range(acts.shape[1]):
+            mask = env.action_mask(state)
+            lp = process_logits_spec(policy.decode_step(cache, state, mask).float(), mask, spec)
+            own = lp.argmax(dim=-1)
+            leave = (own != acts[:, t]) & (first < 0) & ~state.done
+            g = (lp.gather(1, own[:, None]) - lp.gather(1, acts[:, t:t + 1]))[:, 0]
+            gap = torch.where(leave, g, gap)
+            first = torch.where(leave, t, first)
+            state = env.step(state, acts[:, t])
+    return first.cpu().numpy(), gap.cpu().numpy()
+
+
+def hold_costs_at_ties(cost, ref, first, gap, what):
+    """Per-instance costs against the JAX CPU costs, each departure from
+    JAX's tour accounted for: every row that never leaves it within
+    ROUTING_COST_RTOL, every departure at a near-tie (gap at most
+    ROUTING_TIE_ATOL), at most 1 - ROUTING_SAME_SHARE of the rows departed,
+    ROUTING_SAME_SHARE of all costs within ROUTING_COST_RTOL, and the mean of
+    the rows not departed at a near-tie within ROUTING_MEAN_RTOL of theirs."""
+    rel = np.abs(cost - ref) / np.abs(ref)
+    left = first >= 0
+    assert (gap[left] <= ROUTING_TIE_ATOL).all(), (
+        f"{what}: left JAX's tour {int((gap[left] > ROUTING_TIE_ATOL).sum())} times with "
+        f"gaps up to {gap[left].max():.3e}")
+    assert (rel[~left] <= ROUTING_COST_RTOL).all(), f"{what}: a tour as JAX's, another cost"
+    assert left.mean() <= 1 - ROUTING_SAME_SHARE, f"{what}: {int(left.sum())} rows departed"
+    report = hold_costs(cost[~left], ref[~left], what)
+    same = float((rel <= ROUTING_COST_RTOL).mean())
+    assert same >= ROUTING_SAME_SHARE, f"{what}: only {same:.4f} of costs within 1e-5"
+    return {**report, "instances": len(ref), "share_within_1e-5": same,
+            "near_tie_departures": int(left.sum()),
+            "near_tie_gaps": [float(x) for x in gap[left]],
+            "departed_rel_err": [float(x) for x in rel[left]],
+            "mean_rel_err_all": float(abs(cost.mean() - ref.mean()) / abs(ref.mean()))}
+
+
 def routing_policy(name, device, seed, pointer_impl="kernel", **arch):
     """AM (or POMO with ``arch``) on ``name`` at full width, the golden seed's
     weights, in eval mode on ``device``."""
@@ -2084,27 +2160,30 @@ def check_xla_tanh(device, seed=5):
     return {"values": len(want), "differ": differ}
 
 
-def drive_golden_routing(device):
+def drive_golden_routing(device, envs=ROUTING_ENVS, multistart=ROUTING_MULTISTART,
+                         golden="routing_envs"):
     """AM on CVRPTW-50, SDVRP-50, PDP-50, mTSP-50 (5 agents) and SHPP-50:
     greedy on 1 024 in one dispatch, multistart greedy on 256 of CVRPTW (the
     grouped kernel, 50 queries per instance) and SDVRP (its dynamic embedding:
     the cache tiled per start, the single-query kernel on 12 800 rows with new
-    K/V at every step), `evaluate_policy` with `check_solutions`. Launch
-    counts start at 0 before each dispatch and are read after it, with the
-    shapes each kernel was launched at."""
+    K/V at every step), `evaluate_policy` with `check_solutions`; with
+    ``envs``, ``multistart`` and ``golden`` (the files' prefix) another set of
+    envs, CVRPMVC, SVRP, mPDP and MDCPDP (`ROUTING_REST`). Launch counts
+    start at 0 before each dispatch and are read after it, with the shapes
+    each kernel was launched at."""
     from rl4co_tpu_torch.envs import get_env
     from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
     from rl4co_tpu_torch.tasks.eval import evaluate_policy
 
-    insts, costs = golden_npz("routing_envs_instances.npz"), golden_npz("routing_envs_costs.npz")
+    insts, costs = golden_npz(f"{golden}_instances.npz"), golden_npz(f"{golden}_costs.npz")
     seed = int(costs["seed"])
     report, total = {}, {k: 0 for k in LAUNCHES}
     shapes, undo = record_launch_shapes()
     try:
-        for name in ROUTING_ENVS:
+        for name in envs:
             env = get_env(name, num_loc=50)
             inst, policy = by_prefix(insts, name), routing_policy(name, device, seed)
-            for method in ("greedy", "multistart_greedy") if name in ROUTING_MULTISTART \
+            for method in ("greedy", "multistart_greedy") if name in multistart \
                     else ("greedy",):
                 ref = costs[f"{name}/{method}"]
                 dispatch = int(costs[f"{name}/{method}/dispatch"])
@@ -2125,8 +2204,14 @@ def drive_golden_routing(device):
                 assert set(shapes) == {want_shape}, (name, method, set(shapes))
                 for k in total:
                     total[k] += counts[k]
+                if f"{name}/{method}/actions" in costs:
+                    held = hold_costs_at_ties(-res["rewards"], ref, *greedy_departures(
+                        env, policy, batch, costs[f"{name}/{method}/actions"], device),
+                        f"{name}/{method}")
+                else:
+                    held = hold_costs(-res["rewards"], ref, f"{name}/{method}")
                 report[f"{name}/{method}"] = {
-                    **hold_costs(-res["rewards"], ref, f"{name}/{method}"),
+                    **held,
                     "dispatch": dispatch, "kernel_shape": list(want_shape),
                     "tours_valid": 1.0, "seconds_with_validity_check": res["inference_time"],
                     "launches": counts}
@@ -2314,6 +2399,156 @@ def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented)
                                   None if busy is None else busy / ms,
                               "top_kernels": top, "peak_memory_bytes": peak},
             "launches": launches}, launches
+
+
+# GLOP at `runs/glop_tsp1000.py`'s recipe: 128 TSP-1000 instances from a
+# numpy seed, in dispatches of 32, segments of 25, 24 rounds; the reviser AM
+# (Kool et al.'s widths) on SHPP-25 with the golden seed's random weights
+# (no trained reviser is committed). Each variant replays the JAX package's
+# draws from the golden file (`python tests/test_torch_glop.py`) and is held
+# to its CPU costs: the mean within GLOP_MEAN_RTOL, GLOP_SAME_SHARE of the
+# instances within GLOP_COST_RTOL (a near-tie decided otherwise sends the
+# rest of that instance's rounds elsewhere), every tour a permutation.
+GLOP_N, GLOP_COUNT, GLOP_DISPATCH, GLOP_SEG, GLOP_ROUNDS = 1000, 128, 32, 25, 24
+GLOP_MEAN_RTOL, GLOP_COST_RTOL, GLOP_SAME_SHARE = 1e-4, 1e-5, 0.95
+
+
+def glop_instances(seed):
+    return np.random.RandomState(seed).random_sample(
+        (GLOP_COUNT, GLOP_N, 2)).astype(np.float32)
+
+
+def drive_glop_tsp1000(device):
+    """Construction alone, revision by insertion alone, and revision with
+    the reviser: each dispatch run once untimed (the first, warm-up), then
+    all four timed (synchronised host clock), one of them again under
+    `torch.profiler`. Launch counts start at 0 before each dispatch and are
+    read after it: the reviser's dispatch launches K2 once per decode step,
+    24 rounds x 25 steps, at (1 280, None, 25). Tours checked as
+    permutations, lengths recomputed on the host in f64 from the tours."""
+    from rl4co_tpu_torch.convert import load_params, random_params_numpy
+    from rl4co_tpu_torch.models import AttentionModelPolicy
+    from rl4co_tpu_torch.models.zoo.glop import GLOP
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    golden = golden_npz("glop_tsp1000.npz")
+    locs_np = glop_instances(int(golden["locs_seed"]))
+    reviser = AttentionModelPolicy(env_name="shpp", device=device)
+    reviser = load_params(reviser, random_params_numpy(int(golden["seed"]),
+                                                       env_name="shpp")).eval()
+    variants = {"construct": GLOP(seg_len=GLOP_SEG, n_rounds=0),
+                "insertion": GLOP(seg_len=GLOP_SEG, n_rounds=GLOP_ROUNDS),
+                "reviser": GLOP(seg_len=GLOP_SEG, n_rounds=GLOP_ROUNDS, subsolver_policy=reviser)}
+    rows_per_dispatch = GLOP_DISPATCH * GLOP_N // GLOP_SEG
+
+    def draws(d):
+        sl = slice(d * GLOP_DISPATCH, (d + 1) * GLOP_DISPATCH)
+        return {"construction_orders": torch.from_numpy(
+                    golden["construction_orders"][sl].astype(np.int64)).to(device),
+                "offsets": torch.from_numpy(golden["offsets"][d].astype(np.int64)).to(device),
+                "insertion_orders": torch.from_numpy(
+                    golden["insertion_orders"][d].astype(np.int64)).to(device)}
+
+    dispatches = GLOP_COUNT // GLOP_DISPATCH
+    batches = [torch.from_numpy(locs_np[d * GLOP_DISPATCH:(d + 1) * GLOP_DISPATCH]).to(device)
+               for d in range(dispatches)]
+    replay = [draws(d) for d in range(dispatches)]
+    report, total, first_tours = {}, {k: 0 for k in LAUNCHES}, {}
+    shapes, undo = record_launch_shapes()
+    try:
+        for name, glop in variants.items():
+            with torch.no_grad():
+                glop.solve(batches[0], draws=replay[0])            # warm-up
+                torch.cuda.synchronize()
+                tours, lengths, wall_ms, counts = [], [], [], []
+                for d in range(dispatches):
+                    del shapes[:]
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    t, ln = glop.solve(batches[d], draws=replay[d])
+                    torch.cuda.synchronize()
+                    wall_ms.append((time.perf_counter() - t0) * 1e3)
+                    counts.append(dict(LAUNCHES))
+                    want = {k: 0 for k in LAUNCHES}
+                    if glop.subsolver_policy is not None:
+                        want["pointer_step_single"] = GLOP_ROUNDS * GLOP_SEG
+                        assert set(shapes) == {("pointer_step_single", rows_per_dispatch,
+                                                None, GLOP_SEG)}, set(shapes)
+                    assert counts[-1] == want, (name, d, counts[-1], want)
+                    tours.append(t.cpu().numpy())
+                    lengths.append(ln.cpu().numpy())
+                _, busy_ms, device_launches, top = device_profile(
+                    lambda: glop.solve(batches[1], draws=replay[1]), host=False)
+            for k in total:
+                total[k] += sum(c[k] for c in counts)
+            first_tours[name] = tours[0]
+            tours, lengths = np.concatenate(tours), np.concatenate(lengths)
+            assert (np.sort(tours, axis=1) == np.arange(GLOP_N)).all(), f"{name}: not a tour"
+            ordered = np.take_along_axis(locs_np.astype(np.float64),
+                                         tours[..., None].repeat(2, -1), 1)
+            host = np.linalg.norm(ordered - np.roll(ordered, -1, axis=1), axis=-1).sum(1)
+            assert np.allclose(host, lengths, rtol=1e-5), f"{name}: lengths off the tours"
+            ref = golden[f"{name}/cost"]
+            rel = np.abs(host - ref) / ref
+            mean_rel = abs(host.mean() - ref.mean()) / ref.mean()
+            same = float((rel <= GLOP_COST_RTOL).mean())
+            assert mean_rel <= GLOP_MEAN_RTOL, f"{name}: mean off by {mean_rel:.2e}"
+            assert same >= GLOP_SAME_SHARE, f"{name}: only {same:.4f} of costs within 1e-5"
+            med = statistics.median(wall_ms)
+            report[name] = {
+                "instances": GLOP_COUNT, "dispatch": GLOP_DISPATCH,
+                "rounds": glop.n_rounds, "seg_len": GLOP_SEG,
+                "mean_cost": float(host.mean()), "reference_mean_cost": float(ref.mean()),
+                "mean_rel_err": float(mean_rel), "share_within_1e-5": same,
+                "instances_diverged": int((rel > GLOP_COST_RTOL).sum()),
+                "max_rel_err": float(rel.max()), "tours_valid": 1.0,
+                "wall_ms_per_dispatch": wall_ms, "wall_ms_median": med,
+                "instances_per_s": GLOP_COUNT / sum(wall_ms) * 1e3,
+                "profiled_dispatch": {"device_busy_ms": busy_ms,
+                                      "device_busy_share": (None if busy_ms is None
+                                                            else busy_ms / med),
+                                      "device_launches": device_launches,
+                                      "top_kernels": top},
+                "kernel_launches_per_dispatch": counts[0],
+            }
+        report["reviser_orders"] = glop_reviser_orders(variants["reviser"], locs_np, golden,
+                                                       first_tours["construct"], device)
+    finally:
+        undo()
+    for name in ("insertion", "reviser"):
+        assert report[name]["mean_cost"] < report["construct"]["mean_cost"], report
+    return report, total
+
+
+def glop_reviser_orders(glop, locs_np, golden, tours, device):
+    """The reviser's own greedy orders of the first round's 1 280 segments
+    of dispatch 0 (cut from the construction's tours as the round cuts
+    them) against the JAX package's: the share of segments ordered alike
+    (held to GLOP_SAME_SHARE), and the segments' mean internal length under
+    each candidate: a random-weight reviser's orders are longer than
+    insertion's, so acceptance never takes them and the revised costs are
+    insertion's."""
+    from rl4co_tpu_torch.models.zoo.glop import (
+        _segment_lengths,
+        batched_random_insertion_path,
+        segments,
+    )
+
+    offsets = torch.from_numpy(golden["offsets"][0][0].astype(np.int64)).to(device)
+    _, seg = segments(torch.from_numpy(locs_np[:GLOP_DISPATCH]).to(device),
+                      torch.from_numpy(tours).to(device), offsets, GLOP_SEG)
+    with torch.no_grad():
+        orders = glop._solve_segments(seg)
+        insertion = batched_random_insertion_path(seg, torch.from_numpy(
+            golden["insertion_orders"][0][0].astype(np.int64)).to(device))
+        identity = torch.arange(GLOP_SEG, device=device).expand(seg.shape[:2])
+        lengths = {name: float(_segment_lengths(seg, o).mean())
+                   for name, o in (("identity", identity), ("insertion", insertion),
+                                   ("reviser", orders))}
+    same = float((orders.cpu().numpy() == golden["reviser/orders_d0_r0"]).all(axis=1).mean())
+    assert same >= GLOP_SAME_SHARE, f"the reviser orders only {same:.4f} of segments as JAX"
+    return {"segments": int(seg.shape[0]), "share_ordered_as_jax": same,
+            "mean_segment_length": lengths}
 
 
 def main() -> int:
@@ -2510,6 +2745,25 @@ def main() -> int:
                                      for k in launches}})
     vrp_seconds = time.perf_counter() - t_vrp
 
+    # 12. the rest of the routing envs at N 50 (CVRPMVC, SVRP, mPDP, MDCPDP)
+    # held to the JAX CPU costs, and GLOP on TSP-1000 with its reviser
+    t_glop = time.perf_counter()
+    report, rest_launches = drive_golden_routing(device, ROUTING_REST, ROUTING_REST_MULTISTART,
+                                                 "routing_envs_rest")
+    emit({"phase": "golden_routing_envs_rest", "card": smi,
+          "model": "AM 128/8/3/512 batch norm, random weights, N 50; mPDP and MDCPDP 3 agents",
+          "tolerances": {"mean_rtol": ROUTING_MEAN_RTOL, "cost_rtol": ROUTING_COST_RTOL,
+                         "same_share": ROUTING_SAME_SHARE, "tie_atol": ROUTING_TIE_ATOL},
+          "dispatches": report, "launches": rest_launches})
+    report, glop_launches = drive_glop_tsp1000(device)
+    emit({"phase": "glop_tsp1000", "card": smi,
+          "model": "GLOP, TSP-1000, segments of 25, 24 rounds; reviser AM 128/8/3/512 batch "
+                   "norm on SHPP-25, random weights",
+          "tolerances": {"mean_rtol": GLOP_MEAN_RTOL, "cost_rtol": GLOP_COST_RTOL,
+                         "same_share": GLOP_SAME_SHARE},
+          **report, "launches": glop_launches})
+    glop_seconds = time.perf_counter() - t_glop
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -2564,6 +2818,13 @@ def main() -> int:
     by_path["training_cli_mvmoe_pomo_mtvrp50"] = mvmoe_mtvrp_launches
     by_path["training_am_sdvrp50_replay"] = sdvrp_replay_launches
     by_path["training_cli_am_sdvrp50"] = am_sdvrp_launches
+    # the rest of the routing envs: K2 on their greedy dispatches, K1 on
+    # CVRPMVC's multistart; GLOP: K2 in every decode step of its reviser
+    assert rest_launches["pointer_step_single"] > 0
+    assert rest_launches["pointer_step_grouped"] > 0
+    assert glop_launches["pointer_step_single"] > 0
+    by_path["evaluation_golden_routing_envs_rest"] = rest_launches
+    by_path["evaluation_glop_tsp1000"] = glop_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -2577,7 +2838,8 @@ def main() -> int:
             "library_ms": None, "shape": t["shape"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "nar_phases_seconds": nar_seconds, "multi_task_vrp_phases_seconds": vrp_seconds})
+          "nar_phases_seconds": nar_seconds, "multi_task_vrp_phases_seconds": vrp_seconds,
+          "routing_rest_and_glop_phases_seconds": glop_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

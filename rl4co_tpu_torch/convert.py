@@ -14,7 +14,7 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
 - ``pointer/project_out_kernel [D, D]`` (and its ``project_out_bias``) and
   an MoE's ``w_gate [in, E]`` are **not** transposed (used as ``x @ W``);
 - ``context_embedding/W_placeholder`` is copied raw (the −1.0 is applied at
-  use, in `TSPContext`);
+  use, in `TSPContext`), and so is mPDP's ``init_embedding/depot_copy_offset``;
 - PtrNet's raw parameters ``v`` and ``decoder_input0`` go as they are; its
   Flax LSTM cells keep their tree's names (``enc_lstm/ii/kernel``, ...), which
   `models/zoo/ptrnet.py::LSTMCell` registers as ``nn.Linear``s;
@@ -43,7 +43,7 @@ import torch
 
 # leaves copied as they are, by their last path component
 _RAW_LEAVES = ("bias", "scale", "project_out_kernel", "project_out_bias", "W_placeholder",
-               "w_gate", "v", "decoder_input0")
+               "w_gate", "v", "decoder_input0", "depot_copy_offset")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -138,16 +138,17 @@ def _check_env(env_name: str) -> None:
         raise ValueError(f"no env '{env_name}' in the JAX package or the port")
 
 
-def _embedding_module(kind: str, env_name: str, embed_dim: int) -> torch.nn.Module:
+def _embedding_module(kind: str, env_name: str, embed_dim: int, **kwargs) -> torch.nn.Module:
     """The port's ``kind`` (init, context or dynamic) embedding of
-    ``env_name``, built on the meta device: its shapes alone, no draw from
-    torch's random stream."""
+    ``env_name`` with the module's ``kwargs`` (``use_bias``,
+    ``vehicle_capacity``, ...), built on the meta device: its shapes alone,
+    no draw from torch's random stream."""
     from rl4co_tpu_torch.models.nn import env_embeddings as emb
 
     make = {"init": emb.env_init_embedding, "context": emb.env_context_embedding,
             "dynamic": emb.env_dynamic_embedding}[kind]
     with torch.device("meta"):
-        return make(env_name, embed_dim)
+        return make(env_name, embed_dim, **kwargs)
 
 
 def random_params_numpy(
@@ -167,6 +168,8 @@ def random_params_numpy(
     gnn_layers: int = 15,
     heatmap_layers: int = 5,
     z_out_dim: int = 1,
+    init_embedding_kwargs: dict | None = None,
+    context_embedding_kwargs: dict | None = None,
 ) -> dict:
     """A ``params`` tree (without the outer ``"params"`` key) of ``policy``
     (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"`` on ``env_name``,
@@ -178,10 +181,14 @@ def random_params_numpy(
     with ``embed_dim`` and ``hidden_dim``; ``"nargnn"`` (DeepACO's encoder)
     and ``"gfacs"`` (with its logZ head of ``z_out_dim``) with
     ``gnn_layers`` and ``heatmap_layers``; ``num_experts`` for the MoE
-    trees, ``k`` and ``poly_layer_dim`` for PolyNet), drawn from
+    trees, ``k`` and ``poly_layer_dim`` for PolyNet;
+    ``init_embedding_kwargs`` / ``context_embedding_kwargs`` as the policy
+    takes them: ``use_bias=False`` gives an init embedding without bias
+    leaves), drawn from
     ``np.random.RandomState(seed)``: kernels normal scaled by
     ``1/sqrt(fan_in)``, biases and MoE gates normal·0.1, norm scales
-    1 + normal·0.1, ``W_placeholder`` uniform in [0, 2), PtrNet's ``v`` and
+    1 + normal·0.1, ``W_placeholder`` uniform in [0, 2), mPDP's
+    ``depot_copy_offset`` normal·0.02, PtrNet's ``v`` and
     ``decoder_input0`` uniform in [0, 0.2). The draw order is fixed (the
     golden files depend on it), an embedding's by its module's registration
     order, a dynamic embedding's last."""
@@ -239,13 +246,18 @@ def random_params_numpy(
 
     def module_tree(module):
         """The tree of one of the port's embedding modules, whose names are
-        the Flax module's: its own parameters first (TSP's ``W_placeholder``),
-        then each ``nn.Linear`` child, in the order they were registered."""
+        the Flax module's: its own parameters first (TSP's ``W_placeholder``,
+        mPDP's ``depot_copy_offset``), then each ``nn.Linear`` child, in the
+        order they were registered."""
         tree = {}
         for name, p in module.named_parameters(recurse=False):
-            if name != "W_placeholder":
+            shape = tuple(p.shape)
+            if name == "W_placeholder":
+                tree[name] = (2.0 * rs.random_sample(shape)).astype(np.float32)
+            elif name == "depot_copy_offset":
+                tree[name] = (0.02 * rs.standard_normal(shape)).astype(np.float32)
+            else:
                 raise ValueError(f"no draw rule for parameter {name} of {type(module).__name__}")
-            tree[name] = (2.0 * rs.random_sample(tuple(p.shape))).astype(np.float32)
         for name, child in module.named_children():
             if not isinstance(child, torch.nn.Linear):
                 raise ValueError(f"no draw rule for {name} of {type(module).__name__}")
@@ -253,10 +265,11 @@ def random_params_numpy(
         return tree
 
     def init_embedding(env):
-        return module_tree(_embedding_module("init", env, d))
+        return module_tree(_embedding_module("init", env, d, **(init_embedding_kwargs or {})))
 
     def context_embedding(env):
-        return module_tree(_embedding_module("context", env, d))
+        return module_tree(_embedding_module("context", env, d,
+                                             **(context_embedding_kwargs or {})))
 
     if policy in ("nargnn", "gfacs"):
         from rl4co_tpu_torch.models.nn.env_embeddings.edge import EDGE_EMBEDDING_REGISTRY

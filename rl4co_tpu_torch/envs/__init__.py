@@ -2,13 +2,17 @@
 
 from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
 from rl4co_tpu_torch.envs.routing.cvrp import CVRP
+from rl4co_tpu_torch.envs.routing.cvrpmvc import CVRPMVC
 from rl4co_tpu_torch.envs.routing.cvrptw import CVRPTW
+from rl4co_tpu_torch.envs.routing.mdcpdp import MDCPDP
+from rl4co_tpu_torch.envs.routing.mpdp import MPDP
 from rl4co_tpu_torch.envs.routing.mtsp import MTSP, SHPP
 from rl4co_tpu_torch.envs.routing.mtvrp import MTVRP
 from rl4co_tpu_torch.envs.routing.op import OP
 from rl4co_tpu_torch.envs.routing.pctsp import PCTSP, SPCTSP
 from rl4co_tpu_torch.envs.routing.pdp import PDP
 from rl4co_tpu_torch.envs.routing.sdvrp import SDVRP
+from rl4co_tpu_torch.envs.routing.svrp import SVRP
 from rl4co_tpu_torch.envs.routing.tsp import TSP
 
 ENV_REGISTRY = {
@@ -23,15 +27,18 @@ ENV_REGISTRY = {
     "mtsp": MTSP,
     "shpp": SHPP,
     "mtvrp": MTVRP,
+    "svrp": SVRP,
+    "cvrpmvc": CVRPMVC,
+    "mpdp": MPDP,
+    "mdcpdp": MDCPDP,
 }
 
 
 # the JAX package's envs not ported yet -> their ROADMAP.md item (ATSP needs
-# MatNet's embeddings, which come with MatNet)
+# MatNet's embeddings, FFSP, FJSP and JSSP the models that drive them)
 UNPORTED_ENVS = {
-    "atsp": 14,
-    **{name: 10 for name in ("svrp", "cvrpmvc", "mpdp", "mdcpdp", "smtwtp", "ffsp", "fjsp",
-                             "jssp", "dpp", "mdpp", "flp", "mcp")},
+    **{name: "10b" for name in ("smtwtp", "dpp", "mdpp", "flp", "mcp")},
+    **{name: 14 for name in ("atsp", "ffsp", "fjsp", "jssp")},
 }
 
 

@@ -35,15 +35,21 @@ class TSP(Env):
     num_loc: int = 20
     min_loc: float = 0.0
     max_loc: float = 1.0
+    loc_distribution: str = "uniform"  # see rl4co_tpu_torch/envs/distributions.py
 
     def generate(self, batch_size: int,
                  generator: Optional[torch.Generator] = None,
                  device="cuda") -> Instance:
-        """Uniform instances from ``generator`` (its own stream: the same
-        seed does not give `jax.random`'s numbers)."""
+        """Instances from ``generator`` (its own stream: the same seed does
+        not give `jax.random`'s numbers): uniform in ``[min_loc, max_loc)``,
+        or from `get_sampler(loc_distribution)` in its own range."""
         device = resolve_device(device)
-        u = torch.rand((batch_size, self.num_loc, 2), generator=generator,
-                       device=device, dtype=torch.float32)
+        shape = (batch_size, self.num_loc, 2)
+        if self.loc_distribution != "uniform":
+            from rl4co_tpu_torch.envs.distributions import get_sampler
+
+            return {"locs": get_sampler(self.loc_distribution).sample(shape, generator, device)}
+        u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
         return {"locs": self.min_loc + (self.max_loc - self.min_loc) * u}
 
     def reset(self, instances: Instance) -> TSPState:

@@ -58,16 +58,17 @@ class TSPContext(nn.Module):
 
 
 class VRPContext(nn.Module):
-    """current node embedding + remaining capacity (demands are normalized,
-    so the vehicle's capacity is 1)."""
+    """current node embedding + remaining capacity, ``vehicle_capacity``
+    less the load (demands are normalized, so the default capacity is 1)."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, vehicle_capacity: float = 1.0):
         super().__init__()
+        self.vehicle_capacity = vehicle_capacity
         self.project_context = nn.Linear(embed_dim + 1, embed_dim, bias=False)
 
     def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
         cur = gather_rows(embeddings, state.current_node)                # [B', D]
-        remaining = (1.0 - state.used_capacity)[:, None]
+        remaining = (self.vehicle_capacity - state.used_capacity)[:, None]
         return self.project_context(torch.cat([cur, remaining], dim=-1))
 
 
@@ -99,20 +100,24 @@ class PCTSPContext(nn.Module):
 
 
 class VRPTWContext(nn.Module):
-    """current node embedding + remaining capacity + current time."""
+    """current node embedding + remaining capacity (``vehicle_capacity``
+    less the load) + current time."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, vehicle_capacity: float = 1.0):
         super().__init__()
+        self.vehicle_capacity = vehicle_capacity
         self.project_context = nn.Linear(embed_dim + 2, embed_dim, bias=False)
 
     def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
         cur = gather_rows(embeddings, state.current_node)                # [B', D]
-        feats = torch.stack([1.0 - state.used_capacity, state.current_time], dim=-1)
+        feats = torch.stack([self.vehicle_capacity - state.used_capacity,
+                             state.current_time], dim=-1)
         return self.project_context(torch.cat([cur, feats], dim=-1))
 
 
 class PDPContext(nn.Module):
-    """current node embedding alone."""
+    """current node embedding alone (PDP's, and SVRP's: the JAX package's
+    `SVRPContext` is the same module)."""
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -157,11 +162,49 @@ class MTVRPContext(nn.Module):
         return self.project_context(torch.cat([cur, feats], dim=-1))
 
 
+class MPDPContext(nn.Module):
+    """current node embedding + the share of agents still to come, the
+    current agent's tour length and the longest tour so far."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 3, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        a = state.lengths.shape[-1]
+        agent = state.count_depot.clamp(0, a - 1)
+        cur_len = torch.gather(state.lengths, 1, agent[:, None])[:, 0]
+        feats = torch.stack([(a - 1 - state.count_depot).float() / a, cur_len,
+                             state.lengths.max(dim=-1).values], dim=-1)
+        return self.project_context(torch.cat([cur, feats], dim=-1))
+
+
+class MDCPDPContext(nn.Module):
+    """current node embedding + the load carried and the capacity left of
+    the current agent."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 2, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_node)                # [B', D]
+        cap = torch.gather(state.capacity, 1, state.current_depot[:, None])[:, 0]
+        feats = torch.stack([state.current_carry.float(),
+                             (cap - state.current_carry).float()], dim=-1)
+        return self.project_context(torch.cat([cur, feats], dim=-1))
+
+
 CONTEXT_EMBEDDING_REGISTRY = {
     "tsp": TSPContext,
     "shpp": TSPContext,
     "cvrp": VRPContext,
+    "cvrpmvc": VRPContext,
     "sdvrp": VRPContext,
+    "svrp": PDPContext,
+    "mpdp": MPDPContext,
+    "mdcpdp": MDCPDPContext,
     "cvrptw": VRPTWContext,
     "pdp": PDPContext,
     "mtsp": MTSPContext,

@@ -1,6 +1,8 @@
 """Initial (node-feature → embedding) modules per environment (counterpart
 of `rl4co_tpu/models/nn/env_embeddings/init.py`). Each module maps a batched
-instance dict to node embeddings ``[B, N_actions, D]``.
+instance dict to node embeddings ``[B, N_actions, D]``. Every embedding
+but TSP's takes ``use_bias`` (default True), as the JAX modules do: False
+builds its layers without biases, and its tree has no bias leaves.
 """
 
 from __future__ import annotations
@@ -24,10 +26,10 @@ class VRPInitEmbedding(nn.Module):
     """Depot (xy) and customers (xy + demand) embedded by two layers; the
     depot is row 0, as in the env's action indexing."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(3, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(3, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
@@ -38,10 +40,10 @@ class VRPInitEmbedding(nn.Module):
 class OPInitEmbedding(nn.Module):
     """Depot (xy) and customers (xy + prize)."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(3, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(3, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
@@ -53,10 +55,10 @@ class PCTSPInitEmbedding(nn.Module):
     """Depot (xy) and customers (xy + expected prize + penalty): SPCTSP too
     embeds the expected (deterministic) prize, not the realised one."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(4, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(4, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
@@ -69,10 +71,10 @@ class VRPTWInitEmbedding(nn.Module):
     """Depot (xy) and customers (xy, demand, window start and end, service
     duration): CVRPTW's times enter unscaled, up to its ``max_time``."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(6, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(6, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
@@ -86,11 +88,11 @@ class PDPInitEmbedding(nn.Module):
     """Depot (xy); each pickup with its delivery's coordinates (4 features);
     each delivery alone. Rows: depot, pickups, deliveries."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed_pick = nn.Linear(4, embed_dim)
-        self.init_embed_delivery = nn.Linear(2, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed_pick = nn.Linear(4, embed_dim, bias=use_bias)
+        self.init_embed_delivery = nn.Linear(2, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         locs = instance["locs"]
@@ -104,10 +106,10 @@ class PDPInitEmbedding(nn.Module):
 class MTSPInitEmbedding(nn.Module):
     """The depot (node 0 of ``locs``) and the cities embedded by two layers."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(2, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(2, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         locs = instance["locs"]
@@ -120,10 +122,10 @@ class MTVRPInitEmbedding(nn.Module):
     backhaul demand, window start and end, service time). A window bound
     above 1e17 (MTVRP's stand-in for infinity: TW off) enters as 0."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_bias: bool = True):
         super().__init__()
-        self.init_embed_depot = nn.Linear(2, embed_dim)
-        self.init_embed = nn.Linear(7, embed_dim)
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(7, embed_dim, bias=use_bias)
 
     def forward(self, instance) -> torch.Tensor:
         locs = instance["locs"]
@@ -135,11 +137,71 @@ class MTVRPInitEmbedding(nn.Module):
         return torch.cat([self.init_embed_depot(locs[:, :1]), self.init_embed(feats)], dim=-2)
 
 
+class SVRPInitEmbedding(nn.Module):
+    """Depot (xy) and customers (xy + required skill)."""
+
+    def __init__(self, embed_dim: int, use_bias: bool = True):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed = nn.Linear(3, embed_dim, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        feats = torch.cat([instance["locs"], instance["skills"][..., None]], dim=-1)
+        return torch.cat([depot, self.init_embed(feats)], dim=-2)              # [B, N+1, D]
+
+
+class MPDPInitEmbedding(nn.Module):
+    """mPDP: ``num_agents + 1`` copies of the depot, each its embedding plus
+    a learned offset of its own (``depot_copy_offset [A+1, D]``, so that the
+    agents' hand-over targets differ although their coordinates are equal);
+    pickups with their delivery's coordinates; deliveries alone."""
+
+    def __init__(self, embed_dim: int, num_agents: int = 3, use_bias: bool = True):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.depot_copy_offset = nn.Parameter(0.02 * torch.randn(num_agents + 1, embed_dim))
+        self.init_embed_pick = nn.Linear(4, embed_dim, bias=use_bias)
+        self.init_embed_delivery = nn.Linear(2, embed_dim, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        locs = instance["locs"]
+        half = locs.shape[-2] // 2
+        depot = self.init_embed_depot(instance["depot"][:, None, :])           # [B, 1, D]
+        depot = depot + self.depot_copy_offset[None].to(depot.dtype)           # [B, A+1, D]
+        pick = torch.cat([locs[:, :half], locs[:, half:]], dim=-1)
+        return torch.cat([depot, self.init_embed_pick(pick),
+                          self.init_embed_delivery(locs[:, half:])], dim=-2)
+
+
+class MDCPDPInitEmbedding(nn.Module):
+    """The depots (one per agent); pickups with their delivery's
+    coordinates; deliveries alone."""
+
+    def __init__(self, embed_dim: int, use_bias: bool = True):
+        super().__init__()
+        self.init_embed_depot = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed_pick = nn.Linear(4, embed_dim, bias=use_bias)
+        self.init_embed_delivery = nn.Linear(2, embed_dim, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        locs = instance["locs"]
+        half = locs.shape[-2] // 2
+        pick = torch.cat([locs[:, :half], locs[:, half:]], dim=-1)
+        return torch.cat([self.init_embed_depot(instance["depots"]),
+                          self.init_embed_pick(pick),
+                          self.init_embed_delivery(locs[:, half:])], dim=-2)
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
     "shpp": TSPInitEmbedding,
     "cvrp": VRPInitEmbedding,
+    "cvrpmvc": VRPInitEmbedding,
     "sdvrp": VRPInitEmbedding,
+    "svrp": SVRPInitEmbedding,
+    "mpdp": MPDPInitEmbedding,
+    "mdcpdp": MDCPDPInitEmbedding,
     "cvrptw": VRPTWInitEmbedding,
     "pdp": PDPInitEmbedding,
     "mtsp": MTSPInitEmbedding,

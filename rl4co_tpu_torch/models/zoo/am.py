@@ -37,8 +37,8 @@ class AttentionModelPolicy(ConstructivePolicy):
     step through the fused CUDA kernel; ``"plain"`` is its plain composition
     (and the only one that takes ``mask_inner=False``).
     ``init_embedding_kwargs`` / ``context_embedding_kwargs`` go to the env's
-    embedding modules as they are (no ported embedding takes an argument
-    yet). Subclasses replace the embeddings (`_add_embedding`, as the
+    embedding modules as they are (``use_bias``, ``vehicle_capacity``,
+    mPDP's ``num_agents``). Subclasses replace the embeddings (`_add_embedding`, as the
     multi-env policy does), the encoder (`_make_encoder`) or the pointer head
     (`_make_pointer`), as MVMoE and PolyNet do; a subclass that adds modules
     of its own moves them to `device`.

@@ -46,6 +46,25 @@ def gather_by_index(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
 
 
+def xla_cpu_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order XLA's CPU backend sums a row of
+    f32: rows of up to 32 left to right; a longer row padded with zeros to
+    a multiple of 32 (half the padding in front, rounded down), each window
+    of 32 summed left to right, then the window sums the same way. Where a
+    sum's last bit decides a mask (CVRPMVC's remaining demand against whole
+    vehicles), this gives the JAX package's bit."""
+    n = x.shape[-1]
+    if n > 32:
+        windows = -(-n // 32)
+        pad = 32 * windows - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        return xla_cpu_sum(xla_cpu_sum(x.reshape(*x.shape[:-1], windows, 32)))
+    total = x[..., 0]
+    for j in range(1, n):
+        total = total + x[..., j]
+    return total
+
+
 def get_tour_length(ordered_locs: torch.Tensor) -> torch.Tensor:
     """Closed-tour length of locations in visiting order, incl. return arc.
     Works on ``[N, 2]`` or ``[..., N, 2]``."""

@@ -142,7 +142,7 @@ def test_every_ported_env_gets_the_tree_of_its_flax_policy(env_name):
     load_params(AttentionModelPolicy(env_name=env_name, device="cpu", **SMALL), got)
 
 
-@pytest.mark.parametrize("env_name,item", [("atsp", 14), ("svrp", 10), ("fjsp", 10)])
+@pytest.mark.parametrize("env_name,item", [("atsp", 14), ("smtwtp", "10b"), ("fjsp", 14)])
 def test_an_env_not_ported_raises_with_its_roadmap_item(env_name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
         random_params_numpy(0, env_name=env_name)

@@ -71,10 +71,12 @@ def test_check_solution_validity_accepts_and_refuses():
 def test_registry_holds_tsp_only_and_names_the_roadmap():
     # the ported envs (TSP; CVRP since the POMO slice; OP, PCTSP and SPCTSP
     # since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP and MTVRP
-    # since the multi-task VRP slice; the name dates from when TSP was the
-    # only one); the rest raise
-    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrptw", "mtsp", "mtvrp", "op", "pctsp", "pdp",
-                                    "sdvrp", "shpp", "spctsp", "tsp"]
+    # since the multi-task VRP slice; CVRPMVC, SVRP, mPDP and MDCPDP since
+    # the GLOP slice; the name dates from when TSP was the only one); the
+    # rest raise
+    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrpmvc", "cvrptw", "mdcpdp", "mpdp", "mtsp",
+                                    "mtvrp", "op", "pctsp", "pdp", "sdvrp", "shpp", "spctsp",
+                                    "svrp", "tsp"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_env("atsp", num_loc=10)
 

@@ -50,7 +50,10 @@ def test_the_port_has_the_modules_of_the_slice():
                  "envs/routing/local_search.py", "models/zoo/deepaco.py",
                  "models/zoo/gfacs.py", "envs/routing/cvrptw.py", "envs/routing/sdvrp.py",
                  "envs/routing/pdp.py", "envs/routing/mtsp.py", "envs/routing/mtvrp.py",
-                 "models/nn/env_embeddings/dynamic.py", "data/solomon.py"):
+                 "models/nn/env_embeddings/dynamic.py", "data/solomon.py",
+                 "envs/distributions.py", "envs/routing/cvrpmvc.py", "envs/routing/svrp.py",
+                 "envs/routing/mpdp.py", "envs/routing/mdcpdp.py", "data/tsplib.py",
+                 "data/generate.py", "models/zoo/glop.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     for source in ("pointer_kernel.cu", "local_search.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", source)), source

@@ -187,10 +187,11 @@ def test_tsp_context_at_first_and_later_steps(steps):
 def test_embedding_registries_hold_tsp_only():
     # the ported envs' embeddings (TSP; CVRP since the POMO slice; OP, PCTSP
     # and SPCTSP since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP
-    # and MTVRP since the multi-task VRP slice; the name dates from when TSP
-    # was the only one); the rest raise
-    ported = ["cvrp", "cvrptw", "mtsp", "mtvrp", "op", "pctsp", "pdp", "sdvrp", "shpp",
-              "spctsp", "tsp"]
+    # and MTVRP since the multi-task VRP slice; CVRPMVC, SVRP, mPDP and MDCPDP
+    # since the GLOP slice; the name dates from when TSP was the only one);
+    # the rest raise
+    ported = ["cvrp", "cvrpmvc", "cvrptw", "mdcpdp", "mpdp", "mtsp", "mtvrp", "op", "pctsp",
+              "pdp", "sdvrp", "shpp", "spctsp", "svrp", "tsp"]
     assert sorted(INIT_EMBEDDING_REGISTRY) == ported
     assert sorted(CONTEXT_EMBEDDING_REGISTRY) == ported
     with pytest.raises(NotImplementedError):
