@@ -122,7 +122,7 @@ def load_params(policy: torch.nn.Module, tree: dict) -> torch.nn.Module:
 
 
 _TREE_POLICIES = ("am", "symnco", "mvmoe", "polynet", "ptrnet", "multienv", "multienv_moe",
-                  "nargnn", "gfacs")
+                  "nargnn", "gfacs", "critic")
 
 
 def _check_env(env_name: str) -> None:
@@ -168,6 +168,7 @@ def random_params_numpy(
     gnn_layers: int = 15,
     heatmap_layers: int = 5,
     z_out_dim: int = 1,
+    critic_hidden_dim: int = 256,
     init_embedding_kwargs: dict | None = None,
     context_embedding_kwargs: dict | None = None,
 ) -> dict:
@@ -180,7 +181,9 @@ def random_params_numpy(
     ``"multienv"`` or ``"multienv_moe"`` over ``env_names``; ``"ptrnet"``
     with ``embed_dim`` and ``hidden_dim``; ``"nargnn"`` (DeepACO's encoder)
     and ``"gfacs"`` (with its logZ head of ``z_out_dim``) with
-    ``gnn_layers`` and ``heatmap_layers``; ``num_experts`` for the MoE
+    ``gnn_layers`` and ``heatmap_layers``; ``"critic"`` (PPO's and A2C's
+    `CriticNetwork` on ``env_name``, its value head ``critic_hidden_dim``
+    wide); ``num_experts`` for the MoE
     trees, ``k`` and ``poly_layer_dim`` for PolyNet;
     ``init_embedding_kwargs`` / ``context_embedding_kwargs`` as the policy
     takes them: ``use_bias=False`` gives an init embedding without bias
@@ -311,6 +314,10 @@ def random_params_numpy(
             if p is not None:
                 layer[name] = p
         layers[f"layer_{i}"] = layer
+    if policy == "critic":  # Flax's automatic names
+        init_name = f"{type(_embedding_module('init', env_name, d)).__name__}_0"
+        return {init_name: tree["init_embedding"], "GraphAttentionNetwork_0": layers,
+                "Dense_0": dense(d, critic_hidden_dim), "Dense_1": dense(critic_hidden_dim, 1)}
     if moe_trunk:  # the layers sit at the top, named moe_layer_{i}
         tree.update({f"moe_{name}": layer for name, layer in layers.items()})
     else:
@@ -318,10 +325,12 @@ def random_params_numpy(
     tree["project_node_embeddings"] = dense(d, 3 * d, use_bias=False)
     if use_graph_context:
         tree["project_fixed_context"] = dense(d, d, use_bias=False)
+    # a context without parameters (DPP's) has no subtree, as in Flax
     if multi:
-        tree.update({f"context_embeddings_{e}": context_embedding(e) for e in envs})
-    else:
-        tree["context_embedding"] = context_embedding(env_name)
+        tree.update({f"context_embeddings_{e}": ctx for e in envs
+                     if (ctx := context_embedding(e))})
+    elif ctx := context_embedding(env_name):
+        tree["context_embedding"] = ctx
     if moe_trunk:
         tree["pointer"] = {"project_out_moe": moe(d, d)}
     elif policy == "polynet":

@@ -1,6 +1,9 @@
 """Environment registry (counterpart of `rl4co_tpu/envs/__init__.py`)."""
 
 from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
+from rl4co_tpu_torch.envs.eda.dpp import DPP, MDPP
+from rl4co_tpu_torch.envs.graph.flp import FLP
+from rl4co_tpu_torch.envs.graph.mcp import MCP
 from rl4co_tpu_torch.envs.routing.cvrp import CVRP
 from rl4co_tpu_torch.envs.routing.cvrpmvc import CVRPMVC
 from rl4co_tpu_torch.envs.routing.cvrptw import CVRPTW
@@ -13,7 +16,8 @@ from rl4co_tpu_torch.envs.routing.pctsp import PCTSP, SPCTSP
 from rl4co_tpu_torch.envs.routing.pdp import PDP
 from rl4co_tpu_torch.envs.routing.sdvrp import SDVRP
 from rl4co_tpu_torch.envs.routing.svrp import SVRP
-from rl4co_tpu_torch.envs.routing.tsp import TSP
+from rl4co_tpu_torch.envs.routing.tsp import TSP, DenseRewardTSP  # noqa: F401
+from rl4co_tpu_torch.envs.scheduling.smtwtp import SMTWTP
 
 ENV_REGISTRY = {
     "tsp": TSP,
@@ -31,15 +35,17 @@ ENV_REGISTRY = {
     "cvrpmvc": CVRPMVC,
     "mpdp": MPDP,
     "mdcpdp": MDCPDP,
+    "flp": FLP,
+    "mcp": MCP,
+    "smtwtp": SMTWTP,
+    "dpp": DPP,
+    "mdpp": MDPP,
 }
 
 
 # the JAX package's envs not ported yet -> their ROADMAP.md item (ATSP needs
 # MatNet's embeddings, FFSP, FJSP and JSSP the models that drive them)
-UNPORTED_ENVS = {
-    **{name: "10b" for name in ("smtwtp", "dpp", "mdpp", "flp", "mcp")},
-    **{name: 14 for name in ("atsp", "ffsp", "fjsp", "jssp")},
-}
+UNPORTED_ENVS = {name: 14 for name in ("atsp", "ffsp", "fjsp", "jssp")}
 
 
 def get_env(name: str, **kwargs) -> Env:

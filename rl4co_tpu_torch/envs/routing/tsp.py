@@ -114,3 +114,27 @@ class TSP(Env):
         expected = np.arange(self.num_loc)
         if not (sorted_pi == expected).all():
             raise AssertionError("Invalid TSP tour (not a permutation)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseRewardTSP(TSP):
+    """TSP with a reward at every step (the JAX package's `DenseRewardTSP`,
+    for stepwise PPO): minus the length of the arc just added, nothing at
+    the first choice, and the closing arc back to the first node paid at the
+    last step."""
+
+    def step_with_reward(self, state: TSPState, action: torch.Tensor):
+        """``(next state, reward [B])``; 0 on rows already done."""
+        action = action.long()
+
+        def loc(idx):
+            return torch.gather(state.locs, 1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+
+        cur = loc(action)
+        arc = torch.linalg.vector_norm(cur - loc(state.current_node), dim=-1)
+        arc = torch.where(state.i == 0, 0.0, arc)  # the first choice adds no arc
+        next_state = self.step(state, action)
+        closing = torch.where(next_state.done & ~state.done,
+                              torch.linalg.vector_norm(cur - loc(next_state.first_node), dim=-1),
+                              0.0)
+        return next_state, torch.where(state.done, 0.0, -(arc + closing))

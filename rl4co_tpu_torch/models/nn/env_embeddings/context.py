@@ -196,6 +196,69 @@ class MDCPDPContext(nn.Module):
         return self.project_context(torch.cat([cur, feats], dim=-1))
 
 
+class DPPContext(nn.Module):
+    """No context (DPP's and MDPP's): the placements reach the decoder
+    through the mask alone."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.embed_dim = embed_dim
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        return embeddings.new_zeros((state.i.shape[0], self.embed_dim))
+
+
+class SMTWTPContext(nn.Module):
+    """current job embedding + current time."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim + 1, embed_dim, bias=False)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        cur = gather_rows(embeddings, state.current_job)                  # [B', D]
+        return self.project_context(torch.cat([cur, state.current_time[:, None]], dim=-1))
+
+
+def softmax_pool(embeddings: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """The node embeddings ``[B, N, D]`` weighted by ``softmax(scores [B, N])``
+    and summed over the nodes."""
+    soft = torch.softmax(scores, dim=-1)
+    return (embeddings * soft[..., None].to(embeddings.dtype)).sum(dim=-2)
+
+
+class FLPContext(nn.Module):
+    """The node embeddings pooled by the softmax of each candidate's total
+    improvement of the points' distances to the chosen set."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        improve = (state.distances[:, None, :] - state.orig_distances).clamp(min=0.0)
+        return self.project_context(softmax_pool(embeddings, improve.sum(dim=-1)))
+
+
+class MCPContext(nn.Module):
+    """The set embeddings pooled by the softmax of each set's weight still
+    to cover (0 for a chosen set)."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.project_context = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
+        remaining = state.weights * ~state.covered[:, 1:]                 # [B, I]
+        membership = state.membership
+        b, s, m = membership.shape
+        idx = (membership - 1).clamp(0, remaining.shape[-1] - 1).reshape(b, s * m)
+        gathered = torch.gather(remaining, 1, idx).reshape(b, s, m)
+        set_weight = (gathered * (membership > 0)).sum(dim=-1)            # [B, S]
+        set_weight = torch.where(state.chosen, 0.0, set_weight)
+        return self.project_context(softmax_pool(embeddings, set_weight))
+
+
 CONTEXT_EMBEDDING_REGISTRY = {
     "tsp": TSPContext,
     "shpp": TSPContext,
@@ -212,6 +275,11 @@ CONTEXT_EMBEDDING_REGISTRY = {
     "op": OPContext,
     "pctsp": PCTSPContext,
     "spctsp": PCTSPContext,
+    "smtwtp": SMTWTPContext,
+    "dpp": DPPContext,
+    "mdpp": DPPContext,
+    "flp": FLPContext,
+    "mcp": MCPContext,
 }
 
 

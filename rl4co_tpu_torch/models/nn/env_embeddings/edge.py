@@ -14,15 +14,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from rl4co_tpu_torch.utils.ops import get_distance_matrix
+
 
 def default_k_sparse(num_nodes: int) -> int:
     """k = max(n // 5, 10), capped at n - 1 (100 at N 500)."""
     return min(max(num_nodes // 5, 10), num_nodes - 1)
-
-
-def get_distance_matrix(locs: torch.Tensor) -> torch.Tensor:
-    """Pairwise Euclidean distances ``[..., N, N]`` of ``locs [..., N, 2]``."""
-    return torch.linalg.vector_norm(locs[..., :, None, :] - locs[..., None, :, :], dim=-1)
 
 
 def knn_edges_from_matrix(dm: torch.Tensor, k: int):

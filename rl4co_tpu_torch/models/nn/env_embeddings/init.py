@@ -1,14 +1,18 @@
 """Initial (node-feature → embedding) modules per environment (counterpart
 of `rl4co_tpu/models/nn/env_embeddings/init.py`). Each module maps a batched
 instance dict to node embeddings ``[B, N_actions, D]``. Every embedding
-but TSP's takes ``use_bias`` (default True), as the JAX modules do: False
-builds its layers without biases, and its tree has no bias leaves.
+but TSP's, FLP's and MCP's takes ``use_bias`` (default True), as the JAX
+modules do: False builds its layers without biases, and its tree has no bias
+leaves.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from rl4co_tpu_torch.envs.eda.dpp import grid_locs
+from rl4co_tpu_torch.utils.ops import xla_cpu_sum
 
 
 class TSPInitEmbedding(nn.Module):
@@ -193,6 +197,98 @@ class MDCPDPInitEmbedding(nn.Module):
                           self.init_embed_delivery(locs[:, half:])], dim=-2)
 
 
+class DPPInitEmbedding(nn.Module):
+    """Grid-cell coordinates (half the width) and each cell's distance from
+    the probe (the other half)."""
+
+    def __init__(self, embed_dim: int, use_bias: bool = True):
+        super().__init__()
+        half = embed_dim // 2
+        self.init_embed = nn.Linear(2, half, bias=use_bias)
+        self.init_embed_probe = nn.Linear(1, embed_dim - half, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        keepout = instance["keepout"]
+        b, n = keepout.shape
+        locs = grid_locs(int(n ** 0.5), keepout.device)
+        probe_loc = locs[instance["probe"].long()]                             # [B, 2]
+        dist = torch.linalg.vector_norm(locs[None] - probe_loc[:, None, :], dim=-1)
+        return torch.cat([self.init_embed(locs.expand(b, -1, -1)),
+                          self.init_embed_probe(dist[..., None])], dim=-1)
+
+
+class MDPPInitEmbedding(nn.Module):
+    """Grid-cell coordinates and each cell's distance from the nearest
+    probe, each embedded at full width, then projected (``project_out``)."""
+
+    def __init__(self, embed_dim: int, use_bias: bool = True):
+        super().__init__()
+        self.init_embed = nn.Linear(2, embed_dim, bias=use_bias)
+        self.init_embed_probe_distance = nn.Linear(1, embed_dim, bias=use_bias)
+        self.project_out = nn.Linear(2 * embed_dim, embed_dim, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        probe_mask = instance["probe_mask"]
+        b, n = probe_mask.shape
+        locs = grid_locs(int(n ** 0.5), probe_mask.device)
+        dist = torch.linalg.vector_norm(locs[:, None] - locs[None], dim=-1)   # [N, N]
+        min_dist = torch.where(probe_mask[:, None, :], dist[None], torch.inf).amin(dim=-1)
+        return self.project_out(torch.cat([self.init_embed(locs.expand(b, -1, -1)),
+                                           self.init_embed_probe_distance(min_dist[..., None])],
+                                          dim=-1))
+
+
+class SMTWTPInitEmbedding(nn.Module):
+    """(due time, weight, process time) of each job."""
+
+    def __init__(self, embed_dim: int, use_bias: bool = True):
+        super().__init__()
+        self.init_embed = nn.Linear(3, embed_dim, bias=use_bias)
+
+    def forward(self, instance) -> torch.Tensor:
+        return self.init_embed(torch.stack([instance["job_due_time"], instance["job_weight"],
+                                            instance["job_process_time"]], dim=-1))
+
+
+class FLPInitEmbedding(nn.Module):
+    """xy coordinates through a biased ``projection``."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.projection = nn.Linear(2, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        return self.projection(instance["locs"])
+
+
+class MCPInitEmbedding(nn.Module):
+    """Each set: the sum of its members' weight embeddings
+    (``projection_items``), padded members contributing zero.
+
+    The sets' embeddings reach the hundreds (integer weights up to 9, 15
+    members), where the encoder's attention turns an ulp into 1e-4 of a
+    logit, so they are computed with the JAX package's bits: the one-input
+    projection as a product, then the bias (two roundings, as XLA computes
+    it on the CPU; a matrix product fuses them), and the members summed in
+    order (`utils.ops.xla_cpu_sum`). The encoder's own products still round
+    otherwise, and MCP's greedy tours depart from the JAX package's as they
+    depart from themselves in another batch order."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.projection_items = nn.Linear(1, embed_dim)
+
+    def forward(self, instance) -> torch.Tensor:
+        weights, membership = instance["weights"], instance["membership"].long()
+        lin = self.projection_items
+        item_emb = weights[..., None] * lin.weight[:, 0] + lin.bias           # [B, I, D]
+        b, s, m = membership.shape
+        idx = (membership - 1).clamp(0, weights.shape[-1] - 1).reshape(b, s * m)
+        gathered = torch.gather(item_emb, 1, idx[..., None].expand(-1, -1, item_emb.shape[-1]))
+        gathered = gathered.reshape(b, s, m, -1) * (membership > 0)[..., None]
+        return xla_cpu_sum(gathered.transpose(-1, -2))                        # [B, S, D]
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
     "shpp": TSPInitEmbedding,
@@ -209,6 +305,11 @@ INIT_EMBEDDING_REGISTRY = {
     "op": OPInitEmbedding,
     "pctsp": PCTSPInitEmbedding,
     "spctsp": PCTSPInitEmbedding,
+    "smtwtp": SMTWTPInitEmbedding,
+    "dpp": DPPInitEmbedding,
+    "mdpp": MDPPInitEmbedding,
+    "flp": FLPInitEmbedding,
+    "mcp": MCPInitEmbedding,
 }
 
 

@@ -4,6 +4,9 @@ module imports the RL algorithms, which import the policy engine."""
 import importlib
 
 _EXPORTS = {
+    "AttentionModel": "am",
+    "AMPPO": "am",
+    "AttentionModelPolicy": "am",
     "GLOP": "glop",
     "GLOPVRPAdapter": "glop",
     "batched_random_insertion": "glop",

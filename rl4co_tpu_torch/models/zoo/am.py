@@ -190,3 +190,19 @@ def AttentionModel(
     if policy is None:
         policy = AttentionModelPolicy(env_name=env.name, **(policy_kwargs or {}))
     return REINFORCE(env=env, policy=policy, baseline=baseline, **kwargs)
+
+
+def AMPPO(
+    env,
+    policy: AttentionModelPolicy | None = None,
+    policy_kwargs: dict | None = None,
+    **kwargs,
+):
+    """The AM policy trained with PPO and a critic mirroring its encoder.
+    Convenience constructor; returns a `PPO` algorithm, on the policy's
+    device (``"cuda"`` unless ``policy_kwargs["device"]`` says otherwise)."""
+    from rl4co_tpu_torch.rl.ppo import PPO
+
+    if policy is None:
+        policy = AttentionModelPolicy(env_name=env.name, **(policy_kwargs or {}))
+    return PPO(env=env, policy=policy, **kwargs)

@@ -47,7 +47,65 @@ def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
     return gen
 
 
-class REINFORCE:
+class ConstructiveAlgorithm:
+    """What every algorithm over a constructive policy shares: the env, the
+    policy and its device, the train and validation decode specs, the step
+    count and the random stream (one `torch.Generator` on the policy's
+    device, reseeded by `reseed`), the sampling rollout and the greedy
+    evaluation."""
+
+    def __init__(self, env: Env, policy: ConstructivePolicy, train_spec: DecodeSpec,
+                 val_spec: DecodeSpec):
+        self.env = env
+        self.policy = policy
+        self.train_spec = train_spec
+        self.val_spec = val_spec
+        self.device = next(policy.parameters()).device
+        self.step = 0
+        self.generator = seeded_generator(self.device, 0)
+
+    def reseed(self, *words: int) -> None:
+        """Restart the random stream from ``words`` (the trainer: seed, epoch)."""
+        self.generator = seeded_generator(self.device, *words)
+
+    def greedy_reward_fn(self):
+        """``(policy, instances) -> greedy rewards``, without a graph; used by
+        the rollout baseline."""
+        spec = DecodeSpec(kind="greedy", tanh_clipping=self.train_spec.tanh_clipping,
+                          compute_dtype=self.train_spec.compute_dtype)
+
+        def fn(policy, instances):
+            with torch.no_grad():
+                return rollout(policy, self.env, instances, spec, device=self.device).reward
+
+        return fn
+
+    def train_rollout(self, instances, replay_actions: Optional[torch.Tensor] = None):
+        """The live policy's rollout under ``train_spec``, recording the graph;
+        with ``replay_actions`` it replays those (``kind="evaluate"``)."""
+        spec = self.train_spec
+        if replay_actions is not None:
+            spec = dataclasses.replace(spec, kind="evaluate")
+        return rollout(self.policy, self.env, instances, spec, generator=self.generator,
+                       replay_actions=replay_actions, device=self.device)
+
+    def train_step(self, batch_size: int) -> dict:
+        """Generate a fresh batch on the device and `update` on it."""
+        return self.update(self.env.generate(batch_size, self.generator, self.device))
+
+    def make_eval_step(self, spec: Optional[DecodeSpec] = None):
+        spec = spec or self.val_spec
+
+        def eval_step(instances) -> dict:
+            with torch.no_grad():
+                out = rollout(self.policy, self.env, instances, spec,
+                              generator=self.generator, device=self.device)
+            return {"reward": out.reward.mean(), "max_reward": out.reward.max()}
+
+        return eval_step
+
+
+class REINFORCE(ConstructiveAlgorithm):
     """REINFORCE with a pluggable baseline.
 
     Defaults are the published recipe's: Adam, lr 1e-4, gradients clipped to
@@ -68,49 +126,16 @@ class REINFORCE:
         optimizer: str = "adam",
         lr_schedule: Optional[Callable[[int], float]] = None,
     ):
-        self.env = env
-        self.policy = policy
+        super().__init__(env, policy, train_spec, val_spec)
         self.baseline = (get_reinforce_baseline(baseline) if isinstance(baseline, str)
                          else baseline)
-        self.train_spec = train_spec
-        self.val_spec = val_spec
-        self.device = next(policy.parameters()).device
         self.optimizer = get_optimizer(
             policy.parameters(), optimizer,
             lr_schedule if lr_schedule is not None else lr, grad_clip=grad_clip)
         self.baseline_state: BaselineState = self.baseline.init_state(
             policy, self.greedy_reward_fn())
-        self.step = 0
-        self.generator = seeded_generator(self.device, 0)
-
-    def reseed(self, *words: int) -> None:
-        """Restart the random stream from ``words`` (the trainer: seed, epoch)."""
-        self.generator = seeded_generator(self.device, *words)
-
-    # ---- components ----
-
-    def greedy_reward_fn(self):
-        """``(policy, instances) -> greedy rewards``, without a graph; used by
-        the rollout baseline."""
-        spec = DecodeSpec(kind="greedy", tanh_clipping=self.train_spec.tanh_clipping,
-                          compute_dtype=self.train_spec.compute_dtype)
-
-        def fn(policy, instances):
-            with torch.no_grad():
-                return rollout(policy, self.env, instances, spec, device=self.device).reward
-
-        return fn
 
     # ---- loss ----
-
-    def train_rollout(self, instances, replay_actions: Optional[torch.Tensor] = None):
-        """The live policy's rollout under ``train_spec``, recording the graph;
-        with ``replay_actions`` it replays those (``kind="evaluate"``)."""
-        spec = self.train_spec
-        if replay_actions is not None:
-            spec = dataclasses.replace(spec, kind="evaluate")
-        return rollout(self.policy, self.env, instances, spec, generator=self.generator,
-                       replay_actions=replay_actions, device=self.device)
 
     def loss(self, instances, replay_actions: Optional[torch.Tensor] = None):
         """REINFORCE loss of the live policy on ``instances``; records the
@@ -147,23 +172,6 @@ class REINFORCE:
             self.baseline_state, out.reward.detach())
         self.step += 1
         return metrics
-
-    def train_step(self, batch_size: int) -> dict:
-        """Generate a fresh batch on the device and `update` on it."""
-        return self.update(self.env.generate(batch_size, self.generator, self.device))
-
-    # ---- evaluation ----
-
-    def make_eval_step(self, spec: Optional[DecodeSpec] = None):
-        spec = spec or self.val_spec
-
-        def eval_step(instances) -> dict:
-            with torch.no_grad():
-                out = rollout(self.policy, self.env, instances, spec,
-                              generator=self.generator, device=self.device)
-            return {"reward": out.reward.mean(), "max_reward": out.reward.max()}
-
-        return eval_step
 
     # ---- epoch-end hook (host side) ----
 

@@ -71,7 +71,6 @@ MODEL_NAMES = (
 
 # the names whose modules are not ported yet -> their ROADMAP.md item
 UNPORTED_MODELS = {
-    "ppo": 11, "a2c": 11,
     "dact": 13, "n2s": 13, "neuopt": 13,
     "mdam": 14, "ham": 14, "matnet": 14, "l2d": 14, "l2d-attn": 14, "l2d-ppo": 14,
 }
@@ -120,6 +119,15 @@ def _build_model(spec: WorkloadSpec, env, pkw: dict, train_spec: DecodeSpec):
             pkw = {"num_encoder_layers": 6, "normalization": "instance", **pkw}
         return REINFORCE(env=env, policy=AttentionModelPolicy(env_name=env.name, **pkw),
                          baseline=spec.baseline, train_spec=train_spec, lr=lr)
+    if name in ("ppo", "a2c"):
+        from rl4co_tpu_torch.models import AttentionModelPolicy
+
+        if name == "ppo":
+            from rl4co_tpu_torch.rl.ppo import PPO as algo_cls
+        else:
+            from rl4co_tpu_torch.rl.a2c import A2C as algo_cls
+        return algo_cls(env=env, policy=AttentionModelPolicy(env_name=env.name, **pkw),
+                        train_spec=train_spec, lr=lr)
     if name == "pomo":
         from rl4co_tpu_torch.models.zoo.pomo import POMO, make_pomo_policy
 

@@ -65,6 +65,11 @@ def xla_cpu_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def get_distance_matrix(locs: torch.Tensor) -> torch.Tensor:
+    """Pairwise Euclidean distances ``[..., N, N]`` of ``locs [..., N, 2]``."""
+    return torch.linalg.vector_norm(locs[..., :, None, :] - locs[..., None, :, :], dim=-1)
+
+
 def get_tour_length(ordered_locs: torch.Tensor) -> torch.Tensor:
     """Closed-tour length of locations in visiting order, incl. return arc.
     Works on ``[N, 2]`` or ``[..., N, 2]``."""

@@ -63,9 +63,11 @@ NOT_PORTED = ("lamb", "lion", "adafactor")
 
 class Optimizer:
     """Clip by global norm, then the `torch.optim` step at the schedule's
-    learning rate for this step index."""
+    learning rate for this step index; without a schedule each parameter
+    group keeps its own learning rate (A2C's actor and critic, as
+    `optax.multi_transform` gives each branch its own)."""
 
-    def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
+    def __init__(self, inner: torch.optim.Optimizer, schedule: Optional[Schedule],
                  grad_clip: Optional[float] = None):
         self.inner = inner
         self.schedule = schedule
@@ -87,9 +89,10 @@ class Optimizer:
             scale = self.grad_clip / self.grad_norm.clamp(min=self.grad_clip)
             for g in grads:
                 g.mul_(scale)
-        lr = float(self.schedule(self.count))
-        for group in self.inner.param_groups:
-            group["lr"] = lr
+        if self.schedule is not None:
+            lr = float(self.schedule(self.count))
+            for group in self.inner.param_groups:
+                group["lr"] = lr
         self.inner.step()
         self.count += 1
 

@@ -187,12 +187,25 @@ def nar_instances(env_name, seed, b, n):
 KEY = jax.random.PRNGKey(0)
 
 
+# the envs outside routing at the tests' small sizes: their size arguments
+# are not ``num_loc`` (FLP's is, beside the facilities it chooses)
+SMALL_ENVS = {
+    "smtwtp": dict(num_job=8),
+    "dpp": dict(size=4, max_decaps=4, num_freq=8, num_keepout_max=5),
+    "mdpp": dict(size=4, max_decaps=4, num_freq=8, num_keepout_max=5),
+    "flp": dict(num_loc=12, to_choose=3),
+    "mcp": dict(num_items=20, num_sets=10, n_sets_to_choose=3),
+}
+
+
 def env_pair(name, n, **kw):
-    """(the port's env, the JAX package's) of one registry name."""
+    """(the port's env, the JAX package's) of one registry name: a routing
+    env at ``num_loc=n``, an env of `SMALL_ENVS` at its small size."""
     from rl4co_tpu.envs import get_env as jax_get_env
     from rl4co_tpu_torch.envs import get_env
 
-    return get_env(name, num_loc=n, **kw), jax_get_env(name, num_loc=n, **kw)
+    kw = {**(SMALL_ENVS[name] if name in SMALL_ENVS else {"num_loc": n}), **kw}
+    return get_env(name, **kw), jax_get_env(name, **kw)
 
 
 def jax_instances(jenv, seed, b):
@@ -261,7 +274,10 @@ def jax_sampled(jpol, jparams, name, inst, seed=3, **spec):
 
 def _num_loc(name, inst):
     """The env's ``num_loc`` of instances ``inst``: MTVRP's ``locs`` hold the
-    depot, mTSP's and SHPP's are all the nodes."""
+    depot, mTSP's and SHPP's are all the nodes; None for an env of
+    `SMALL_ENVS`, which `env_pair` builds at its small size."""
+    if name in SMALL_ENVS:
+        return None
     n = inst["locs"].shape[1]
     return n - 1 if name == "mtvrp" else n
 
@@ -284,7 +300,9 @@ def embedding_pair(kind, env_name, seed=0, embed_dim=32):
         env_init_embedding,
     )
 
-    tree = random_params_numpy(seed, embed_dim, 1, 16, env_name=env_name)[f"{kind}_embedding"]
+    # a context without parameters (DPP's) has no subtree
+    tree = random_params_numpy(seed, embed_dim, 1, 16, env_name=env_name).get(
+        f"{kind}_embedding", {})
     if kind == "init":
         jmod = jinit.env_init_embedding(env_name, embed_dim)
         tmod = env_init_embedding(env_name, embed_dim)

@@ -250,7 +250,7 @@ def test_native_generation_draws_through_the_port(tmp_path):
         assert f["locs"].shape == (3, 6, 2) and f["depot"].shape == (3, 2)
 
 
-@pytest.mark.parametrize("problem,item", [("atsp", "14"), ("mdpp", "10b")])
+@pytest.mark.parametrize("problem,item", [("atsp", "14"), ("ffsp", "14")])
 def test_unported_problems_raise_with_their_item(problem, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tgen.generate_dataset(problem, 10, 2, 0, device="cpu")

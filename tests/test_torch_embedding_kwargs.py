@@ -1,6 +1,6 @@
 """The env embeddings' own arguments, as the JAX package's modules take them
 (`rl4co_tpu/models/nn/env_embeddings/{init,context}.py`): ``use_bias`` on
-every init embedding but TSP's and SHPP's, ``vehicle_capacity`` on CVRP's
+every init embedding but TSP's, SHPP's, FLP's and MCP's, ``vehicle_capacity`` on CVRP's
 and CVRPTW's context. With ``use_bias=False`` the port's tree
 (`convert.random_params_numpy(init_embedding_kwargs=...)`) has the paths and
 shapes of the JAX package's freshly initialised one, the policy loads it, and
@@ -38,7 +38,7 @@ from _torch_port import (
 
 torch.set_num_threads(1)
 
-BIASED = sorted(set(ENV_REGISTRY) - {"tsp", "shpp"})
+BIASED = sorted(set(ENV_REGISTRY) - {"tsp", "shpp", "flp", "mcp"})
 NO_BIAS = {"use_bias": False}
 
 

@@ -72,11 +72,11 @@ def test_registry_holds_tsp_only_and_names_the_roadmap():
     # the ported envs (TSP; CVRP since the POMO slice; OP, PCTSP and SPCTSP
     # since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP and MTVRP
     # since the multi-task VRP slice; CVRPMVC, SVRP, mPDP and MDCPDP since
-    # the GLOP slice; the name dates from when TSP was the only one); the
-    # rest raise
-    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrpmvc", "cvrptw", "mdcpdp", "mpdp", "mtsp",
-                                    "mtvrp", "op", "pctsp", "pdp", "sdvrp", "shpp", "spctsp",
-                                    "svrp", "tsp"]
+    # the GLOP slice; SMTWTP, DPP, MDPP, FLP and MCP since the PPO slice; the
+    # name dates from when TSP was the only one); the rest raise
+    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrpmvc", "cvrptw", "dpp", "flp", "mcp",
+                                    "mdcpdp", "mdpp", "mpdp", "mtsp", "mtvrp", "op", "pctsp",
+                                    "pdp", "sdvrp", "shpp", "smtwtp", "spctsp", "svrp", "tsp"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_env("atsp", num_loc=10)
 

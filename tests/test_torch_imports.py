@@ -53,7 +53,9 @@ def test_the_port_has_the_modules_of_the_slice():
                  "models/nn/env_embeddings/dynamic.py", "data/solomon.py",
                  "envs/distributions.py", "envs/routing/cvrpmvc.py", "envs/routing/svrp.py",
                  "envs/routing/mpdp.py", "envs/routing/mdcpdp.py", "data/tsplib.py",
-                 "data/generate.py", "models/zoo/glop.py"):
+                 "data/generate.py", "models/zoo/glop.py", "rl/critic.py", "rl/utils.py",
+                 "rl/ppo.py", "rl/a2c.py", "envs/scheduling/smtwtp.py", "envs/eda/dpp.py",
+                 "envs/graph/flp.py", "envs/graph/mcp.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     for source in ("pointer_kernel.cu", "local_search.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", source)), source

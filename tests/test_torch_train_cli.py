@@ -25,8 +25,8 @@ TINY = ["--num-loc", "6", "--batch-size", "4", "--train-size", "8", "--val-size"
 
 def test_model_names_equal_the_jax_tuple():
     assert MODEL_NAMES == JAX_MODEL_NAMES
-    assert PORTED == ["am", "am-multienv", "am-xl", "deepaco", "gfacs", "mvmoe", "mvmoe-pomo",
-                      "polynet", "pomo", "ptrnet", "symnco"]
+    assert PORTED == ["a2c", "am", "am-multienv", "am-xl", "deepaco", "gfacs", "mvmoe",
+                      "mvmoe-pomo", "polynet", "pomo", "ppo", "ptrnet", "symnco"]
 
 
 def tiny_spec(model, **kw):
@@ -165,6 +165,39 @@ def test_multi_task_vrp_envs_train_two_steps_and_resume(model, env, tmp_path, ca
     assert len(losses) == 2 and all(np.isfinite(v) for v in losses)  # one record per epoch
     assert [r["epoch"] for r in records if "val/reward" in r] == [0.0, 1.0]
     assert all(np.isfinite(r["val/reward"]) for r in records if "val/reward" in r)
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("model", ["ppo", "a2c"])
+def test_actor_critic_models_resume_as_a_straight_run_and_load_in_the_eval_cli(
+        model, tmp_path, capsys):
+    """``--model ppo|a2c`` at AM's published widths on TSP-6 on the CPU: two
+    epochs straight, and one epoch then a second resumed from `last.pt`,
+    end with equal policies, critics and optimiser steps; the eval command
+    line loads the checkpoint's policy and gives its greedy reward."""
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+    from rl4co_tpu_torch.tasks import eval_cli
+
+    def run(ckpt, epochs, resume=None):
+        args = ["--model", model, "--env", "tsp", "--num-loc", "6", "--batch-size", "4",
+                "--train-size", "8", "--val-size", "4", "--device", "cpu", "--precision", "f32",
+                "--ckpt-dir", str(tmp_path / ckpt), "--epochs", str(epochs)]
+        return main(args + (["--resume-from", resume] if resume else []))
+
+    straight = run("straight", 2)
+    run("split", 1)
+    resumed = run("split", 2, str(tmp_path / "split" / "last.pt"))
+    assert straight.step == resumed.step == 4
+    assert straight.optimizer.count == resumed.optimizer.count == (32 if model == "ppo" else 4)
+    for mod in ("policy", "critic"):
+        for (name, a), b in zip(getattr(straight, mod).named_parameters(),
+                                getattr(resumed, mod).parameters()):
+            assert torch.equal(a, b), (mod, name)
+    res = eval_cli.main(["--problem", "tsp", "--num-loc", "6", "--size", "4", "--device", "cpu",
+                         "--ckpt-path", str(tmp_path / "split" / "last.pt")])
+    inst = resumed.env.generate(4, seeded_generator(torch.device("cpu"), 1234), "cpu")
+    want = resumed.make_eval_step()(inst)["reward"].item()
+    np.testing.assert_allclose(res["mean_reward"], want, rtol=1e-6)
     capsys.readouterr()
 
 
