@@ -136,7 +136,9 @@ CASES = [
     (648, 50, 51, 128, 8, 0.7),
     (64, 50, 51, 128, 8, "cvrp_like"),
     (655, 50, 51, 128, 8, "cvrp_like"),
-    (512, 50, 51, 128, 8, "cvrp_like"),  # train_pomo's validation: 64 x 8 augments
+    (512, 50, 51, 128, 8, "cvrp_like"),  # train_pomo's validation: 64 x 8 augments;
+    # EAS-Emb's multistart rollout under autograd (64 x 8 augments, 50 starts),
+    # whose replay of the incumbents is (512, None, 51) "cvrp_like" below
     # the AM checkpoint's dispatches on TSP-50: greedy, and dihedral-8 (3799 x 8)
     (8192, None, 50, 128, 8, 0.7),
     (30392, None, 50, 128, 8, 0.7),
@@ -764,6 +766,12 @@ GRAD_SHAPES = {
     "pointer_step_single": (512, None, 50, 128, 8),
     "pointer_step_grouped": (64, 50, 50, 128, 8),
 }
+# EAS-Emb's shapes at 64 CVRP-50 instances x 8 augments: K1 in the multistart
+# rollout, K2 in the replay of the incumbents, both under autograd
+EAS_GRAD_SHAPES = {
+    "pointer_step_grouped_eas_multistart": (512, 50, 51, 128, 8, "cvrp_like"),
+    "pointer_step_single_eas_incumbents": (512, None, 51, 128, 8, "cvrp_like"),
+}
 # greedy cost on TSP-20 must fall by at least this much in phase (d): half of
 # the fall first measured on an H100 at this size (3.97, from 8.13 to 4.16)
 LEARN_MARGIN = 2.0
@@ -787,7 +795,8 @@ def check_function_gradients(device, seed=2, iters=20, shapes=GRAD_SHAPES):
     against plain autograd's, which checks the `Function`'s wiring (saved
     inputs, `needs_input_grad`, the order of the gradients) and not the
     kernel: both sides take them from the plain version's graph. Also the
-    device time of its backward. ``shapes``: {label: (B, L, N, D, H)}."""
+    device time of its backward. ``shapes``: {label: (B, L, N, D, H[, mask kind])},
+    the mask kind as `make_case` takes it (0.7 feasible by default)."""
     from rl4co_tpu_torch.ops.pointer_kernel import (
         fused_pointer_logits,
         pointer_logits_plain,
@@ -795,8 +804,8 @@ def check_function_gradients(device, seed=2, iters=20, shapes=GRAD_SHAPES):
 
     rs = np.random.RandomState(seed)
     report = {}
-    for name, (b, l, n, d, h) in shapes.items():
-        q, k, v, lk, bias, w, _ = make_case(rs, b, l, n, d, h, 0.7, device)
+    for name, (b, l, n, d, h, *mask) in shapes.items():
+        q, k, v, lk, bias, w, _ = make_case(rs, b, l, n, d, h, mask[0] if mask else 0.7, device)
         cot = torch.from_numpy(rs.standard_normal(tuple(bias.shape)).astype(np.float32)).to(device)
 
         def grads(fn):
@@ -831,6 +840,7 @@ def check_function_gradients(device, seed=2, iters=20, shapes=GRAD_SHAPES):
         t_bound, bound_by = backward_bound_ms(b, l, n, d)
         report[name] = {
             "shape": {"B": b, "L": l, "N": n, "D": d, "H": h},
+            "mask": mask[0] if mask else 0.7,
             "forward_max_abs_err": fwd_err.max().item(),
             "grad_max_abs_err": worst,
             # the Function's backward: recompute of the plain forward + its backward
@@ -2939,6 +2949,459 @@ def train_cli_actor_critic(device, tmp, model, steps, algo_cls, margin=None, num
             "fall": before - after, "margin": margin}, launches
 
 
+# EAS and Active Search on the POMO CVRP-50 checkpoint (`rl4co_tpu_torch/
+# models/zoo/eas.py`). The golden file (`python tests/test_torch_eas.py`)
+# holds the JAX package's iterations on the first EAS_GOLDEN_COUNT instances:
+# the port replays their sampled actions under autograd, K1 in the multistart
+# rollout and K2 in the replay of the incumbents, and is held to the losses,
+# every gradient, AdamW's update and the incumbents (tolerances as
+# `tests/test_torch_eas.py`, the test of the same replay at a small size).
+EAS_LOSS_RTOL = 1e-4
+EAS_GRAD_GAUGE = 1.7e-4       # of the largest gradient
+AS_GRAD_GAUGE = 1e-3          # Active Search: its gradient runs through the encoder
+EAS_UPDATE_ATOL = 0.05        # in units of the learning rate ...
+EAS_BIG_GRAD = 1e-3           # ... where |g| exceeds this share of the largest
+EAS_UPDATE_NORM_RTOL = 5e-2   # Active Search's per-leaf update norms
+EAS_TIE_RTOL = 1e-6           # best rewards; two incumbents this close are a tie
+EAS_RUN_COUNT, EAS_RUN_ITERS = 64, 20
+
+
+def eas_instances(device, count):
+    from rl4co_tpu_torch.data.io import load_reference_npz
+
+    test = load_reference_npz(os.path.join(ROOT, "data", "cvrp", "test50_seed1234.npz"), "cvrp")
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:count])).to(device)
+            for k, v in test.items()}
+
+
+def hold_eas_iteration(got, gold, pre, lr, before, after, gauge):
+    """One replayed iteration against the golden one; returns its errors."""
+    losses = {"rl_loss": float(gold[pre + "rl_loss"]), "il_loss": float(gold[pre + "il_loss"])}
+    report = {}
+    for k, want in losses.items():
+        if k not in got:
+            continue
+        err = abs(got[k].item() - want)
+        assert err <= EAS_LOSS_RTOL * abs(want) + 1e-6, (pre, k, got[k].item(), want)
+        report[f"{k}_abs_err"] = err
+    grads = by_prefix(gold, pre + "grads")
+    scale = max(float(np.abs(g).max()) for g in grads.values())
+    worst = 0.0
+    for k, want in grads.items():
+        err = float(np.abs(got["grads"][k].cpu().numpy() - want).max())
+        assert err <= gauge * scale, (pre, k, err, scale)
+        worst = max(worst, err)
+        if k in after:
+            big = np.abs(want) > EAS_BIG_GRAD * scale
+            trained = gold.get(pre + "trained/" + k)
+            if trained is not None:
+                d = ((after[k] - before[k]) - (trained - before[k]))[big] / lr
+                assert np.abs(d).max(initial=0) <= EAS_UPDATE_ATOL, (pre, k, np.abs(d).max())
+    report.update(grad_scale=scale, grad_max_err_over_scale=worst / scale, gauge=gauge)
+    return report
+
+
+def hold_incumbents(state, gold, pre):
+    """The incumbents against the golden ones: have_best equal, the best
+    rewards within EAS_TIE_RTOL, the best actions equal but where two tours
+    tie (the starts of one instance that reach tours of one cost, or the
+    same tour in another rotation, whose costs differ in their last bits:
+    which one the arg-max takes is a tie), which the equal best rewards prove."""
+    best, want = state.best.cpu().numpy(), gold[pre + "best"]
+    assert (state.have_best.cpu().numpy() == gold[pre + "have_best"]).all(), pre
+    assert np.allclose(best, want, rtol=EAS_TIE_RTOL, atol=0), (pre, np.abs(best - want).max())
+    differ = (state.best_actions.cpu().numpy() != gold[pre + "best_actions"]).any(-1)
+    assert differ.mean() <= 0.25, (pre, int(differ.sum()), "incumbents departed")
+    return {"incumbents_departed_at_ties": int(differ.sum()),
+            "best_max_rel_err": float((np.abs(best - want) / np.abs(want)).max())}
+
+
+def check_eas_golden(device):
+    """EAS-Emb's and EAS-Lay's two golden iterations and Active Search's one,
+    replayed on the card; Active Search's f32 floor: the same replay with the
+    instances in another order, against the port itself."""
+    from rl4co_tpu_torch.convert import convert_eas_params
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.eas import ActiveSearch, EASEmb, EASLay
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    gold = golden_npz("eas_cvrp50.npz")
+    count = int(gold["count"])
+    env = get_env("cvrp", num_loc=50)
+    inst = eas_instances(device, count)
+    policy = checkpoint_policy("pomo_cvrp50", device)
+    flat = lambda tr: {k: v.detach().cpu().numpy().copy() for k, v in tr.items()}  # noqa: E731
+    reset_launches()
+    report = {}
+    for kind, cls, lr in (("emb", EASEmb, 4.1e-3), ("lay", EASLay, 4.1e-3)):
+        search = cls(env, policy)
+        if kind == "lay":
+            state = search.init_state(inst, eas_init=convert_eas_params(by_prefix(gold,
+                                                                                 "lay/init")))
+        else:
+            state = search.init_state(inst)
+        its = []
+        for i in range(2):
+            pre = f"{kind}/{i}/"
+            before = flat(state.trainable)
+            got = search.step(state, replay_actions=torch.from_numpy(
+                gold[pre + "actions"].astype(np.int64)).to(device), keep_grads=True)
+            it = hold_eas_iteration(got, gold, pre, lr, before, flat(state.trainable),
+                                    EAS_GRAD_GAUGE)
+            it.update(hold_incumbents(state, gold, pre))
+            its.append(it)
+            with torch.no_grad():   # carry JAX's trained tensors and incumbents on
+                for k, v in by_prefix(gold, pre + "trained").items():
+                    state.trainable[k].copy_(torch.from_numpy(v).to(device))
+                state.best = torch.from_numpy(gold[pre + "best"]).to(device)
+                state.best_actions = torch.from_numpy(
+                    gold[pre + "best_actions"].astype(np.int64)).to(device)
+                state.have_best = torch.from_numpy(gold[pre + "have_best"]).to(device)
+        report[kind] = its
+    # Active Search: one iteration, and its floor on a reordered batch
+    search = ActiveSearch(env, policy)
+    actions = torch.from_numpy(gold["as/0/actions"].astype(np.int64)).to(device)
+    state = search.init_state(inst)
+    before = {k: v.detach().clone() for k, v in state.trainable.items()}
+    got = search.step(state, replay_actions=actions, keep_grads=True)
+    perm = torch.randperm(count, generator=torch.Generator().manual_seed(0)).to(device)
+    s = env.get_num_starts()
+    rows = (torch.arange(s, device=device)[:, None] * count + perm[None, :]).reshape(-1)
+    search_p = ActiveSearch(env, policy)
+    state_p = search_p.init_state({k: v[perm] for k, v in inst.items()})
+    got_p = search_p.step(state_p, replay_actions=actions[rows], keep_grads=True)
+    grads = by_prefix(gold, "as/0/grads")
+    norms = by_prefix(gold, "as/0/grad_norm")
+    scale = max(float(v.abs().max()) for v in got["grads"].values())
+    floor = max(float((got["grads"][k] - got_p["grads"][k]).abs().max())
+                for k in got["grads"]) / scale
+    err = max(float(np.abs(got["grads"][k].cpu().numpy() - g).max()) for k, g in grads.items())
+    assert err <= AS_GRAD_GAUGE * scale, ("active search gradients", err / scale, floor)
+    norm_err = max(abs(float(got["grads"][k].norm()) - float(v)) / max(float(v), 1e-12)
+                   for k, v in norms.items() if float(v) > EAS_BIG_GRAD * scale)
+    assert norm_err <= 1e-2, ("active search gradient norms", norm_err)
+    upd = by_prefix(gold, "as/0/update_norm")
+    upd_err = 0.0
+    for k, want in upd.items():
+        g = got["grads"][k]
+        big = g.abs() > EAS_BIG_GRAD * scale
+        d = float((state.trainable[k].detach() - before[k])[big].norm())
+        if float(want) > 0:
+            upd_err = max(upd_err, abs(d - float(want)) / float(want))
+    assert upd_err <= EAS_UPDATE_NORM_RTOL, ("active search update norms", upd_err)
+    loss_err = abs(got["loss"].item() - float(gold["as/0/rl_loss"]))
+    assert loss_err <= EAS_LOSS_RTOL * abs(float(gold["as/0/rl_loss"])) + 1e-6, loss_err
+    report["active_search"] = {
+        "loss_abs_err": loss_err, "grad_scale": scale,
+        "grad_max_err_over_scale": err / scale, "gauge": AS_GRAD_GAUGE,
+        "reordered_batch_floor_over_scale": floor, "grad_norm_max_rel_err": norm_err,
+        "update_norm_max_rel_err": upd_err, "leaves_in_full": len(grads),
+        "leaves": len(norms)}
+    report["instances"] = count
+    return report, dict(LAUNCHES)
+
+
+def drive_eas_pomo_cvrp50(device, count=EAS_RUN_COUNT, iters=EAS_RUN_ITERS, seed=18):
+    """EAS-Emb with the POMO checkpoint on the first ``count`` canonical
+    CVRP-50 instances (×8 augments: B 512, 50 starts), ``iters`` seeded
+    iterations: per-iteration time, the device's busy share of one iteration,
+    peak memory, launches, the mean best cost every 5 iterations, and the
+    backward recomputes of both kernels (the proof that they ran under
+    autograd). The final mean best cost must lie below the POMO dihedral-8
+    multistart greedy mean of the same instances (the JAX CPU costs)."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.eas import EASEmb
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+    from rl4co_tpu_torch.utils.ops import unbatchify
+
+    env = get_env("cvrp", num_loc=50)
+    inst = eas_instances(device, count)
+    greedy = golden_npz("pomo_cvrp50_costs.npz")["multistart_greedy_augment_dihedral_8"][:count]
+    search = EASEmb(env, checkpoint_policy("pomo_cvrp50", device), max_iters=iters)
+    gen = seeded_generator(device, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls, undo = count_backward_recomputes()
+    try:
+        reset_launches()
+        state = search.init_state(inst)
+        ms, curve = [], []
+        for it in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search.step(state, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if (it + 1) % 5 == 0:
+                best = unbatchify(state.best, 8).max(dim=-1).values
+                curve.append({"iteration": it + 1, "mean_best_cost": -best.mean().item()})
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        _, busy, n_launches, top = device_profile(lambda: search.step(state, gen))
+    finally:
+        undo()
+    shapes = sorted(set(calls))
+    assert (8 * count, 50, 51) in shapes and (8 * count, 51) in shapes, shapes
+    assert launches["pointer_step_grouped"] > 0 and launches["pointer_step_single"] > 0, launches
+    final = curve[-1]["mean_best_cost"]
+    assert np.isfinite(final) and final < float(greedy.mean()), (
+        f"EAS-Emb's mean best cost {final:.5f} after {iters} iterations is not below POMO's "
+        f"dihedral-8 multistart greedy {float(greedy.mean()):.5f}")
+    med = statistics.median(ms)
+    return {"model": "POMO CVRP-50 checkpoint (128/8/6/512, instance norm), EAS-Emb, "
+                     f"{count} instances x 8 augments, 50 starts, lr 4.1e-3, lambda 0.013",
+            "iterations": iters, "iteration_ms_runs": ms, "iteration_ms_median": med,
+            "profiled_iteration": {"device_busy_ms": busy, "device_launches": n_launches,
+                                   "device_busy_share_of_median":
+                                       None if busy is None else busy / med,
+                                   "top_kernels": top},
+            "peak_memory_bytes": peak, "backward_recompute_shapes": [list(s) for s in shapes],
+            "backward_recomputes": len(calls), "mean_best_cost": curve,
+            "pomo_dihedral8_multistart_greedy_mean": float(greedy.mean()),
+            "launches": launches}, launches
+
+
+def search_cli_eas_lay(device, tmp, iters=2, size=64):
+    """``--model pomo --env cvrp --num-loc 50 --search eas-lay --search-iters
+    <iters>`` through the train command line: one train step at batch 64,
+    validation on 64, then EAS-Lay on ``size`` generated instances; its JSON
+    line is read back."""
+    import contextlib
+    import io
+
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    argv = ["--model", "pomo", "--env", "cvrp", "--num-loc", "50", "--batch-size", "64",
+            "--train-size", "64", "--val-size", "64", "--epochs", "1", "--baseline", "shared",
+            "--search", "eas-lay", "--search-iters", str(iters), "--search-size", str(size),
+            "--ckpt-dir", os.path.join(tmp, "pomo-eas-lay"), "--device", str(device)]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith('{"search"')]
+    assert len(lines) == 1 and lines[0]["search"] == "eas-lay", lines
+    assert np.isfinite(lines[0]["best_reward"]) and lines[0]["best_reward"] < 0, lines
+    assert launches["pointer_step_grouped"] > 0 and launches["pointer_step_single"] > 0
+    return {"argv": argv, "search_line": lines[0], "cli_seconds": seconds,
+            "launches": launches}, launches
+
+
+# The improvement trio at their published widths, batch 64, N 50. The golden
+# file (`python tests/test_torch_n_step_ppo.py`) holds the JAX package's
+# seeded initialisation, 20 of its sampled steps and one n-step PPO segment.
+TRIO_BATCH, TRIO_STEPS = 64, 20
+TRIO_LOGP_ATOL = 1e-4
+TRIO_TIE_RTOL = 1e-6            # a departure of rec_best must be a tie this close
+TRIO_COST_RTOL = 4.8e-7         # 4 ulps: XLA's fused square root
+TRIO_FIRST_LOSS_RTOL, TRIO_LATER_LOSS_RTOL = 1e-4, 2e-2
+TRIO_GRAD_GAUGE = 1e-3          # of the largest gradient
+TRIO_GRAD_NORM_RTOL = 1e-2      # every leaf's gradient norm (those above 1e-3 of the largest)
+TRIO_UPDATE_NORM_RTOL = 5e-2
+TRIO_MODELS = {"dact": ("rl4co_tpu_torch.models.zoo.dact", "DACT"),
+               "n2s": ("rl4co_tpu_torch.models.zoo.n2s", "N2S"),
+               "neuopt": ("rl4co_tpu_torch.models.zoo.neuopt", "NeuOpt")}
+# The command line's runs are cut from 20 DACT steps and 2 each of N2S and NeuOpt to 2, 1
+# and 1: a step (250 moves in 50 segments, about 270 000 launches) takes 7-15 s on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, host-bound, and each validation 1 000 moves (12-24 s); the full
+# depth would take the script past 1 100 s of its 1 200
+TRIO_CLI_STEPS = {"dact": 2, "n2s": 1, "neuopt": 1}
+TRIO_EVAL_T = 200
+
+
+def trio_algo(name, device, tree=None):
+    """The model's `NStepPPO` at its defaults (on N 50), from the golden
+    weights when ``tree`` (``{"policy": ..., "critic": ...}``) is given."""
+    from rl4co_tpu_torch.convert import load_params
+
+    module, ctor = TRIO_MODELS[name]
+    algo = getattr(importlib.import_module(module), ctor)(device=device)
+    algo.env = dataclasses.replace(algo.env, num_loc=50)
+    if tree is not None:
+        load_params(algo.policy, tree["policy"])
+        load_params(algo.critic, tree["critic"])
+    return algo
+
+
+def unflatten(flat):
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def check_trio_golden(device):
+    """Per model: the JAX package's 20 sampled steps replayed (log-probabilities,
+    tours, best tours but for proven ties, costs), then one segment replayed
+    (its rollout, every epoch's losses, the first epoch's gradients, each
+    leaf's update norm)."""
+    gold = golden_npz("improvement_trio.npz")
+    report = {}
+    for name in TRIO_MODELS:
+        g = by_prefix(gold, name)
+        algo = trio_algo(name, device, unflatten(by_prefix(g, "params")))
+        env = algo.env
+        inst = {k: torch.from_numpy(v).to(device) for k, v in by_prefix(g, "instances").items()}
+        rec0 = torch.from_numpy(g["rec0"].astype(np.int64)).to(device)
+        st = env.reset_from(inst, rec0)
+        spec = dataclasses.replace(algo.train_spec, kind="evaluate")
+        rp = by_prefix(g, "replay")
+        prev = torch.zeros(TRIO_BATCH, algo.action_dim, dtype=torch.long, device=device)
+        logp_err, departed, ties = 0.0, np.zeros(TRIO_BATCH, bool), []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(int(gold["steps"])):
+                a = torch.from_numpy(rp["actions"][t].astype(np.int64)).to(device)
+                got_a, logp, _ = algo.act_fn(algo.policy, st, spec, None, prev, a)
+                assert torch.equal(got_a, a), (name, t, "packed action")
+                logp_err = max(logp_err, float((logp.cpu() - torch.from_numpy(
+                    rp["logprobs"][t])).abs().max()))
+                bsf = st.cost_bsf.cpu().numpy()
+                st, _ = env.step(st, a)
+                prev = a
+                assert (st.rec_current.cpu().numpy() == rp["rec_current"][t]).all(), (name, t)
+                cur, want_bsf = st.cost_current.cpu().numpy(), rp["cost_bsf"][t]
+                assert np.allclose(cur, rp["cost_current"][t], rtol=TRIO_COST_RTOL, atol=0)
+                assert np.allclose(st.cost_bsf.cpu().numpy(), want_bsf, rtol=TRIO_COST_RTOL,
+                                   atol=0)
+                differs = (st.rec_best.cpu().numpy() != rp["rec_best"][t]).any(-1)
+                new = differs & ~departed
+                for b in np.flatnonzero(new):   # a departure starts only at a tie
+                    gap = abs(float(rp["cost_current"][t][b]) - float(bsf[b])) / float(bsf[b])
+                    assert gap <= TRIO_TIE_RTOL, (name, t, b, gap)
+                    ties.append(gap)
+                departed = differs
+        replay_s = time.perf_counter() - t0
+        assert logp_err <= TRIO_LOGP_ATOL, (name, logp_err)
+        # one segment from the initial tour, its moves replayed
+        seg = by_prefix(g, "segment")
+        trace = {}
+        before = {n: p.detach().clone() for n, p in [
+            *(("policy." + k, v) for k, v in algo.policy.named_parameters()),
+            *(("critic." + k, v) for k, v in algo.critic.named_parameters())]}
+        st0 = env.reset_from(inst, rec0)
+        st_end, _, _ = algo.segment(st0, torch.zeros_like(prev), torch.from_numpy(
+            seg["actions"].astype(np.int64)).to(device), trace)
+        assert (st_end.rec_current.cpu().numpy() == seg["rec_current"]).all(), name
+        old_ll_err = float((trace["old_ll"].cpu() - torch.from_numpy(seg["old_ll"])).abs().max())
+        assert old_ll_err <= TRIO_LOGP_ATOL, (name, old_ll_err)
+        ret_err = float((trace["returns"].cpu() - torch.from_numpy(seg["returns"])).abs().max())
+        assert ret_err <= 1e-4, (name, ret_err)
+        loss_errs = []
+        for k, (got, want) in enumerate(zip(trace["epochs"], seg["epochs"])):
+            rtol = TRIO_FIRST_LOSS_RTOL if k == 0 else TRIO_LATER_LOSS_RTOL
+            errs = {m: abs(got[m] - float(w)) / max(abs(float(w)), 1e-6)
+                    for m, w in zip(("loss", "surrogate_loss", "value_loss", "value"), want)}
+            assert all(e <= rtol for e in errs.values()), (name, k, errs, got, want)
+            loss_errs.append(max(errs.values()))
+        grads, norms = by_prefix(seg, "grads"), by_prefix(seg, "grad_norm")
+        assert set(norms) == set(trace["grads"]), sorted(set(norms) ^ set(trace["grads"]))
+        scale = max(float(v.abs().max()) for v in trace["grads"].values())
+        grad_err = max(float(np.abs(trace["grads"][k].cpu().numpy() - v).max())
+                       for k, v in grads.items())
+        assert grad_err <= TRIO_GRAD_GAUGE * scale, (name, grad_err / scale)
+        norm_err = max(abs(float(trace["grads"][k].norm()) - float(v)) / float(v)
+                       for k, v in norms.items() if float(v) > 1e-3 * scale)
+        assert norm_err <= TRIO_GRAD_NORM_RTOL, (name, norm_err)
+        params = {**{"policy." + k: v for k, v in algo.policy.named_parameters()},
+                  **{"critic." + k: v for k, v in algo.critic.named_parameters()}}
+        upd_err = 0.0
+        for k, want in by_prefix(seg, "update_norm").items():
+            big = trace["grads"][k].abs() > 1e-3 * scale
+            d = float((params[k].detach() - before[k])[big].norm())
+            if float(want) > 0:
+                upd_err = max(upd_err, abs(d - float(want)) / float(want))
+        assert upd_err <= TRIO_UPDATE_NORM_RTOL, (name, upd_err)
+        report[name] = {"steps": int(gold["steps"]), "logp_max_abs_err": logp_err,
+                        "rec_best_departures_at_ties": len(ties), "tie_gaps": ties,
+                        "replay_seconds": replay_s,
+                        "segment": {"old_ll_max_abs_err": old_ll_err,
+                                    "returns_max_abs_err": ret_err,
+                                    "epoch_loss_max_rel_err": loss_errs,
+                                    "grad_scale": scale, "grad_max_err_over_scale":
+                                        grad_err / scale, "grad_leaves_in_full": len(grads),
+                                    "grad_norm_max_rel_err": norm_err,
+                                    "update_norm_max_rel_err": upd_err}}
+    return report
+
+
+def train_cli_trio(device, tmp, batch=TRIO_BATCH, val=TRIO_BATCH):
+    """``--model dact`` (TRIO_CLI_STEPS steps), then ``n2s`` and ``neuopt``,
+    through the train command line at batch ``batch`` (each step a fresh
+    batch improved for T_train = 250 moves in 50 segments; validation runs
+    T_test = 1 000 moves on ``val`` instances), every step timed; then each
+    trained model evaluated at T_TEST 200 on a fresh batch, the best cost
+    no worse than the initial one, and 20 of its improvement steps under the
+    profiler (ms, busy share and device launches per step)."""
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.rl.n_step_ppo import NStepPPO
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+
+    report = {}
+    inner = NStepPPO.train_step
+    for name, steps in TRIO_CLI_STEPS.items():
+        done = []
+
+        def timed(self, batch_size, done=done):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = inner(self, batch_size)
+            torch.cuda.synchronize()
+            done.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "metrics": {k: float(v) for k, v in m.items()}})
+            return m
+
+        log = os.path.join(tmp, f"{name}.jsonl")
+        argv = ["--model", name, "--batch-size", str(batch), "--train-size", str(steps * batch),
+                "--val-size", str(val), "--epochs", "1", "--log-file", log,
+                "--ckpt-dir", os.path.join(tmp, name), "--device", str(device)]
+        NStepPPO.train_step = timed
+        t0 = time.perf_counter()
+        try:
+            algo = train.main(argv)
+        finally:
+            NStepPPO.train_step = inner
+        cli_s = time.perf_counter() - t0
+        assert len(done) == steps, (name, len(done))
+        assert all(np.isfinite(v) for s in done for v in s["metrics"].values()), name
+        epoch = [r for r in read_jsonl(log) if "val/reward" in r][-1]
+        assert np.isfinite(epoch["val/reward"]), epoch
+        # evaluation at T_TEST moves from random tours
+        env = algo.env
+        inst = env.generate(batch, seeded_generator(device, 7), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = algo.evaluate(inst, TRIO_EVAL_T, seeded_generator(device, 8))
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        cost_init, cost_bsf = ev["cost_init"].item(), ev["cost_bsf"].item()
+        assert cost_bsf <= cost_init, (name, cost_bsf, cost_init)
+        g = seeded_generator(device, 9)
+        _, busy, n_launches, top = device_profile(
+            lambda: algo.evaluate(inst, 20, g), host=False)
+        step_ms = eval_ms / TRIO_EVAL_T
+        report[name] = {
+            "argv": argv, "steps": steps, "step_ms_runs": [s["ms"] for s in done],
+            "metrics_first_last": [done[0]["metrics"], done[-1]["metrics"]],
+            "val_cost": -epoch["val/reward"], "cli_seconds": cli_s,
+            "eval": {"t_max": TRIO_EVAL_T, "instances": batch, "cost_init": cost_init,
+                     "cost_bsf": cost_bsf, "ms_per_improvement_step": step_ms,
+                     "device_busy_ms_per_step": None if busy is None else busy / 20,
+                     "device_busy_share": None if busy is None else busy / 20 / step_ms,
+                     "device_launches_per_step": n_launches / 20, "top_kernels": top}}
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3185,6 +3648,42 @@ def main() -> int:
           "dispatches": report, "launches": envs_10b_launches})
     ppo_seconds = time.perf_counter() - t_ppo
 
+    # 14. the transductive search on the POMO CVRP-50 checkpoint (K1 and K2
+    # under autograd), and the improvement trio with n-step PPO
+    t_eas = time.perf_counter()
+    golden, eas_golden_launches = check_eas_golden(device)
+    function_gradients = check_function_gradients(device, shapes=EAS_GRAD_SHAPES)
+    report, eas_launches = drive_eas_pomo_cvrp50(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, eas_cli_launches = search_cli_eas_lay(device, tmp)
+    emit({"phase": "eas_pomo_cvrp50", "card": smi, "golden_replay": golden,
+          "function_gradients_at_eas_shapes": function_gradients, "run": report, "cli": cli,
+          "tolerances": {"loss_rtol": EAS_LOSS_RTOL, "grad_gauge": EAS_GRAD_GAUGE,
+                         "active_search_grad_gauge": AS_GRAD_GAUGE,
+                         "update_atol_in_lr": EAS_UPDATE_ATOL},
+          "launches": {k: eas_golden_launches[k] + eas_launches[k] + eas_cli_launches[k]
+                       for k in launches}})
+    eas_seconds = time.perf_counter() - t_eas
+    t_trio = time.perf_counter()
+    reset_launches()
+    golden = check_trio_golden(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = train_cli_trio(device, tmp)
+    trio_launches = dict(LAUNCHES)
+    assert sum(trio_launches.values()) == 0, trio_launches   # no pointer kernel on this path
+    emit({"phase": "improvement_trio", "card": smi,
+          "models": {"dact": "DACT 64/3 layers/4 heads, TSPkopt k_max 2",
+                     "n2s": "N2S 128/3/4, PDPRuinRepair", "neuopt": "NeuOpt 128/3/4, TSPkopt "
+                     "k_max 4", "replay": "N 50, batch 64", "cli": "N 20 (the CLI's defaults)"},
+          "golden_replay": golden, "cli": cli,
+          "tolerances": {"logp_atol": TRIO_LOGP_ATOL, "tie_rtol": TRIO_TIE_RTOL,
+                         "cost_rtol": TRIO_COST_RTOL, "first_loss_rtol": TRIO_FIRST_LOSS_RTOL,
+                         "later_loss_rtol": TRIO_LATER_LOSS_RTOL,
+                         "grad_gauge": TRIO_GRAD_GAUGE,
+                         "update_norm_rtol": TRIO_UPDATE_NORM_RTOL},
+          "launches": trio_launches})
+    trio_seconds = time.perf_counter() - t_trio
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -3255,6 +3754,16 @@ def main() -> int:
                          ("evaluation_golden_envs_10b", envs_10b_launches)):
         assert counts["pointer_step_single"] > 0, (path, counts)
         by_path[path] = counts
+    # the transductive search: K1 in the multistart rollout and K2 in the
+    # replay of the incumbents, both under autograd, in the golden replay, the
+    # 20-iteration run and the command line's EAS-Lay
+    for path, counts in (("search_eas_pomo_cvrp50", {
+            k: eas_golden_launches[k] + eas_launches[k] for k in launches}),
+            ("search_cli_eas_lay", eas_cli_launches)):
+        assert counts["pointer_step_single"] > 0 and counts["pointer_step_grouped"] > 0, (
+            path, counts)
+        by_path[path] = counts
+    by_path["training_improvement_trio"] = trio_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -3270,7 +3779,8 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nar_phases_seconds": nar_seconds, "multi_task_vrp_phases_seconds": vrp_seconds,
           "routing_rest_and_glop_phases_seconds": glop_seconds,
-          "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds})
+          "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds,
+          "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

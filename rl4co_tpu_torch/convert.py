@@ -15,6 +15,13 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
   an MoE's ``w_gate [in, E]`` are **not** transposed (used as ``x @ W``);
 - ``context_embedding/W_placeholder`` is copied raw (the −1.0 is applied at
   use, in `TSPContext`), and so is mPDP's ``init_embedding/depot_copy_offset``;
+- a Flax ``GRUCell`` (NeuOpt's ``decoder/rnn1``, ``rnn2``) becomes the
+  stacked rows of `torch.nn.GRUCell` (`_pack_gru_cells`); NeuOpt's raw
+  ``linear_V1``, ``linear_V2`` and ``init_query`` go as they are;
+- the improvement policies (`models/zoo/{dact,n2s,neuopt}.py`) and their
+  `ImprovementCritic` register every sub-module under the Flax tree's name,
+  its MLPs' layers as ``Dense_{i}``; EAS-Lay's layer goes through
+  `convert_eas_params`;
 - PtrNet's raw parameters ``v`` and ``decoder_input0`` go as they are; its
   Flax LSTM cells keep their tree's names (``enc_lstm/ii/kernel``, ...), which
   `models/zoo/ptrnet.py::LSTMCell` registers as ``nn.Linear``s;
@@ -43,7 +50,10 @@ import torch
 
 # leaves copied as they are, by their last path component
 _RAW_LEAVES = ("bias", "scale", "project_out_kernel", "project_out_bias", "W_placeholder",
-               "w_gate", "v", "decoder_input0", "depot_copy_offset")
+               "w_gate", "v", "decoder_input0", "depot_copy_offset", "linear_V1", "linear_V2",
+               "init_query", "weight_ih", "weight_hh", "bias_ih", "bias_hh")
+# a Flax GRUCell's sub-modules, in the order of torch.nn.GRUCell's stacked rows
+_GRU_INPUT, _GRU_HIDDEN = ("ir", "iz", "in"), ("hr", "hz", "hn")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -78,11 +88,46 @@ def load_params_npz(path: str) -> dict:
     return tree
 
 
+def _pack_gru_cells(tree: dict) -> dict:
+    """Every Flax ``GRUCell`` subtree (``ir, iz, in`` with biases, ``hr, hz``
+    without, ``hn`` with) as `torch.nn.GRUCell`'s stacked ``r, z, n`` rows:
+    ``weight_ih [3D, in]``, ``weight_hh [3D, D]``, ``bias_ih``, and
+    ``bias_hh`` zero in its r and z rows."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict) and set(val) == set(_GRU_INPUT + _GRU_HIDDEN):
+            hn_bias = np.asarray(val["hn"]["bias"], dtype=np.float32)
+            zeros = np.zeros_like(hn_bias)
+            val = {
+                "weight_ih": np.concatenate([np.asarray(val[g]["kernel"]).T for g in _GRU_INPUT]),
+                "weight_hh": np.concatenate([np.asarray(val[g]["kernel"]).T
+                                             for g in _GRU_HIDDEN]),
+                "bias_ih": np.concatenate([np.asarray(val[g]["bias"]) for g in _GRU_INPUT]),
+                "bias_hh": np.concatenate([zeros, zeros, hn_bias]),
+            }
+            if any(set(tree[key][g]) != {"kernel"} for g in ("hr", "hz")):
+                raise ValueError(f"{key}: a GRUCell's hr and hz carry no bias in Flax")
+        elif isinstance(val, dict):
+            val = _pack_gru_cells(val)
+        out[key] = val
+    return out
+
+
+def convert_eas_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """EAS-Lay's layer (``w1 [D, H]``, ``b1``, ``w2 [H, D]``, ``b2``, used as
+    ``x @ w``: nothing is transposed) as f32 tensors, what
+    `models/zoo/eas.py::EASLay.init_state` takes as ``eas_init``."""
+    if set(tree) != {"w1", "b1", "w2", "b2"}:
+        raise ValueError(f"an EAS-Lay tree has w1, b1, w2, b2; got {sorted(tree)}")
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in tree.items()}
+
+
 def convert_params(tree: dict) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays -> ``state_dict`` (f32 CPU tensors).
     Accepts the tree with or without Flax's outer ``"params"`` key."""
     if set(tree.keys()) == {"params"} and isinstance(tree["params"], dict):
         tree = tree["params"]
+    tree = _pack_gru_cells(tree)
     state = {}
     for path, arr in _flatten(tree).items():
         *parents, leaf = path

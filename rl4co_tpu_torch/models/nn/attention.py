@@ -169,3 +169,26 @@ class PointerAttention(nn.Module):
             mask_to_neg_bias(mask).contiguous(),
             self.project_out_kernel, self.num_heads,
         )
+
+
+class MultiHeadCompat(nn.Module):
+    """Per-head compatibility scores without a value or output projection
+    (counterpart of the JAX package's ``MultiHeadCompat``): ``Wq`` on the
+    queries, ``Wk`` on the keys (the queries themselves without ``kv``),
+    scaled by ``1/sqrt(head width)``; returns ``[H, B, L, S]``."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.Wq = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.Wk = nn.Linear(embed_dim, embed_dim, bias=False)
+
+    def forward(self, q_input: torch.Tensor,
+                kv_input: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if kv_input is None:
+            kv_input = q_input
+        q = _split_heads(self.Wq(q_input), self.num_heads)   # [B, H, L, Dh]
+        k = _split_heads(self.Wk(kv_input), self.num_heads)  # [B, H, S, Dh]
+        scale = torch.tensor(q.shape[-1], dtype=q.dtype).sqrt().reciprocal().item()
+        compat = torch.matmul(q, k.transpose(-1, -2)) * scale
+        return compat.movedim(1, 0)

@@ -76,3 +76,24 @@ class TransformerFFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(torch.relu(self.Dense_0(x)))
+
+
+class MLP(nn.Module):
+    """Linear layers with ``hidden_act`` between them and ``out_act`` at the
+    end; the layers carry Flax's automatic names ``Dense_0``, ``Dense_1``, ..."""
+
+    def __init__(self, input_dim: int, output_dim: int, num_neurons=(),
+                 hidden_act: str = "relu", out_act: str = "identity", use_bias: bool = True):
+        super().__init__()
+        dims = [input_dim, *num_neurons, output_dim]
+        for i in range(len(dims) - 1):
+            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1], bias=use_bias))
+        self.num_layers = len(dims) - 1
+        self.hidden_act = ACTIVATIONS[hidden_act.lower()]
+        self.out_act = ACTIVATIONS[out_act.lower()]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"Dense_{i}")(x)
+            x = self.hidden_act(x) if i < self.num_layers - 1 else self.out_act(x)
+        return x

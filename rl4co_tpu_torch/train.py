@@ -9,9 +9,13 @@ and model names, plus ``--device``:
 
 The default ``--device`` is ``cuda`` (raising without a card); ``--device cpu``
 runs on the CPU. Models whose modules are not ported yet, and the flags of
-back ends not ported yet (``--search``, ``--tensorboard``, ``--mlflow``,
-``--dp`` above 1, ``--distributed``), raise `NotImplementedError` naming
-their ROADMAP.md item. ``--ckpt-dir`` writes the port's ``best.pt`` and
+back ends not ported yet (``--tensorboard``, ``--mlflow``, ``--dp`` above 1,
+``--distributed``), raise `NotImplementedError` naming their ROADMAP.md
+item. ``--search`` runs Active Search, EAS-Emb or EAS-Lay with the trained
+policy on ``--search-size`` generated instances after training and prints
+the JAX command line's JSON line ``{"search": ..., "best_reward": ...}``.
+``dact``, ``n2s`` and ``neuopt`` ignore ``--env`` and train on their own
+improvement MDPs with n-step PPO, as in the JAX package. ``--ckpt-dir`` writes the port's ``best.pt`` and
 ``last.pt``; ``--resume-from`` takes one of those files.
 
 Behaviours of the JAX package kept as they are: ``am-multienv`` and
@@ -71,7 +75,6 @@ MODEL_NAMES = (
 
 # the names whose modules are not ported yet -> their ROADMAP.md item
 UNPORTED_MODELS = {
-    "dact": 13, "n2s": 13, "neuopt": 13,
     "mdam": 14, "ham": 14, "matnet": 14, "l2d": 14, "l2d-attn": 14, "l2d-ppo": 14,
 }
 
@@ -160,6 +163,14 @@ def _build_model(spec: WorkloadSpec, env, pkw: dict, train_spec: DecodeSpec):
 
         ctor = MVMoE_POMO if name == "mvmoe-pomo" else MVMoE_AM
         return ctor(env, policy_kwargs=pkw, train_spec=train_spec, lr=lr)
+    if name in ("dact", "n2s", "neuopt"):
+        # the improvement trio on their own MDPs (they ignore --env), n-step PPO
+        from rl4co_tpu_torch.models.zoo.dact import DACT
+        from rl4co_tpu_torch.models.zoo.n2s import N2S
+        from rl4co_tpu_torch.models.zoo.neuopt import NeuOpt
+
+        ctor = {"dact": DACT, "n2s": N2S, "neuopt": NeuOpt}[name]
+        return ctor(lr_policy=lr, policy_kwargs=pkw)
     # am-multienv: one shared-trunk policy over the comma list of envs
     from rl4co_tpu_torch.rl.multi_env import MultiEnvREINFORCE
 
@@ -174,7 +185,7 @@ def main(argv: Optional[list] = None):
     p.add_argument("--model", default="am", choices=MODEL_NAMES)
     p.add_argument("--search", default=None,
                    choices=["active_search", "eas-emb", "eas-lay"],
-                   help="post-train transductive search on the test set (not ported)")
+                   help="post-train transductive search on the test set")
     p.add_argument("--search-size", type=int, default=64)
     p.add_argument("--search-iters", type=int, default=0,
                    help="override search max_iters (0 = method default)")
@@ -203,8 +214,7 @@ def main(argv: Optional[list] = None):
     p.add_argument("--device", default="cuda", help="cuda (default), cuda:<i> or cpu")
     args = p.parse_args(argv)
 
-    for flag, value, item in (("--search", args.search, 13),
-                              ("--tensorboard", args.tensorboard, 15),
+    for flag, value, item in (("--tensorboard", args.tensorboard, 15),
                               ("--mlflow", args.mlflow, 15),
                               ("--dp above 1", args.dp > 1, 15),
                               ("--distributed", args.distributed, 15)):
@@ -233,8 +243,34 @@ def main(argv: Optional[list] = None):
         logger = MultiLogger(lambda m: print(json.dumps({k: str(v) for k, v in m.items()})),
                              JSONLLogger(args.log_file))
     print(f"Workload: {spec}")
-    _, trainer = build(spec, logger=logger)
-    return trainer.fit(resume_from=args.resume_from)
+    algo, trainer = build(spec, logger=logger)
+    algo = trainer.fit(resume_from=args.resume_from)
+    if args.search:
+        result = run_search(args.search, algo, args.search_size, spec.seed + 1,
+                            args.search_iters)
+        print(json.dumps({"search": args.search,
+                          "best_reward": float(result["best_reward"].mean())}))
+    return algo
+
+
+SEARCHES = ("active_search", "eas-emb", "eas-lay")
+
+
+def run_search(search: str, algo, size: int, seed: int, iters: int = 0) -> dict:
+    """The transductive search ``search`` with the trained policy on ``size``
+    instances generated from ``seed`` (the JAX command line's
+    ``PRNGKey(seed + 1)``; the port's own stream), ``iters`` iterations (0:
+    the method's default)."""
+    from rl4co_tpu_torch.models.zoo.eas import ActiveSearch, EASEmb, EASLay
+    from rl4co_tpu_torch.rl.reinforce import seeded_generator
+
+    if search not in SEARCHES:
+        raise ValueError(f"Unknown search {search!r}")
+    cls = {"active_search": ActiveSearch, "eas-emb": EASEmb, "eas-lay": EASLay}[search]
+    kwargs = {"max_iters": iters} if iters else {}
+    generator = seeded_generator(algo.device, seed)
+    instances = algo.env.generate(size, generator, algo.device)
+    return cls(algo.env, algo.policy, **kwargs).search(instances, generator)
 
 
 if __name__ == "__main__":

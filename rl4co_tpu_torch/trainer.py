@@ -166,11 +166,11 @@ class Trainer:
             self._sync()
             train_s = time.perf_counter() - t0
 
-            record = {
-                "epoch": epoch,
-                "time/epoch_s": train_s,
-                "env_steps_per_s": steps_per_epoch * cfg.batch_size * env.max_steps / train_s,
-            }
+            # an improvement env has no episode length: T_train moves per batch
+            ep_len = getattr(env, "max_steps", None) or getattr(algo, "T_train", None)
+            record = {"epoch": epoch, "time/epoch_s": train_s}
+            if ep_len is not None:
+                record["env_steps_per_s"] = steps_per_epoch * cfg.batch_size * ep_len / train_s
             monitor_val = None
             for name, instances in val_datasets.items():
                 vm = self._validate(eval_step, instances)

@@ -100,3 +100,28 @@ def unbatchify(x, repeats: int):
         return a.reshape(repeats, b, *a.shape[1:]).transpose(0, 1)
 
     return tree_map(_one, x)
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """``inv[b, perm[b, i]] = i`` for a batch of permutations ``[B, N]`` (the
+    predecessor of each node of a linked-list tour), as a stable argsort: the
+    JAX package's definition, which gives its result on any input."""
+    return torch.argsort(perm, dim=-1, stable=True)
+
+
+def scatter_permutation(perm: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[b, perm[b, i]] = values[b, i]`` when ``perm`` is a permutation,
+    as the gather ``values[b, argsort(perm[b])]``."""
+    return torch.gather(values, -1, inverse_permutation(perm))
+
+
+def mark_vector_set(x: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, j]] = values[b, j]`` for ``x [B, N]`` and index vectors
+    ``[B, K]``; a repeated index takes the value of its last slot, as in the
+    JAX package (a CUDA scatter would pick any of them)."""
+    n, k = x.shape[-1], idx.shape[-1]
+    hit = torch.arange(n, device=x.device)[None, :, None] == idx[:, None, :]   # [B, N, K]
+    slots = torch.arange(k, device=x.device)
+    last = torch.where(hit, slots, -1).amax(dim=-1)                            # [B, N]
+    vals = torch.gather(values, -1, last.clamp(min=0))
+    return torch.where(last >= 0, vals, x)

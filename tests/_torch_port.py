@@ -351,3 +351,88 @@ def check_embeddings(env_name, inst, tstates, jstates, atol=1e-5, rtol=1e-6):
             with torch.no_grad():
                 got_c = t2n(tmod(torch.from_numpy(emb), ts))
             close(got_c, want_c, f"context bf16={bf16}")
+
+
+# ---- the improvement trio (DACT, N2S, NeuOpt) ----
+
+TRIO_SMALL = dict(embed_dim=16, num_heads=2, num_encoder_layers=1, feedforward_hidden=16)
+
+
+def trio_setup(name, n, **dims):
+    """(JAX env, port env, JAX policy, port policy class, JAX act, port act,
+    embeds width of the critic) of one improvement model; ``n`` customers."""
+    import functools
+
+    from rl4co_tpu.envs.routing.pdp_ruin_repair import PDPRuinRepair as JaxRR
+    from rl4co_tpu.envs.routing.tsp_kopt import TSPkopt as JaxKopt
+    from rl4co_tpu.models.zoo.dact import DACTPolicy as JaxDACT, dact_act as jax_dact_act
+    from rl4co_tpu.models.zoo.n2s import N2SPolicy as JaxN2S, n2s_act as jax_n2s_act
+    from rl4co_tpu.models.zoo.neuopt import NeuOptPolicy as JaxNeuOpt
+    from rl4co_tpu.models.zoo.neuopt import neuopt_act as jax_neuopt_act
+    from rl4co_tpu_torch.envs.routing.pdp_ruin_repair import PDPRuinRepair
+    from rl4co_tpu_torch.envs.routing.tsp_kopt import TSPkopt
+    from rl4co_tpu_torch.models.zoo.dact import DACTPolicy, dact_act
+    from rl4co_tpu_torch.models.zoo.n2s import N2SPolicy, n2s_act
+    from rl4co_tpu_torch.models.zoo.neuopt import NeuOptPolicy, neuopt_act
+
+    if name == "dact":
+        return (JaxKopt(num_loc=n, k_max=2), TSPkopt(num_loc=n, k_max=2), JaxDACT(**dims),
+                DACTPolicy, jax_dact_act, dact_act, 2 * dims.get("embed_dim", 64))
+    if name == "n2s":
+        return (JaxRR(num_loc=n), PDPRuinRepair(num_loc=n), JaxN2S(**dims), N2SPolicy,
+                jax_n2s_act, n2s_act, dims.get("embed_dim", 128))
+    return (JaxKopt(num_loc=n, k_max=4), TSPkopt(num_loc=n, k_max=4), JaxNeuOpt(**dims),
+            NeuOptPolicy, functools.partial(jax_neuopt_act, k_max=4),
+            functools.partial(neuopt_act, k_max=4), dims.get("embed_dim", 128))
+
+
+def trio_state_to_torch(tenv, inst_np, jst):
+    """The port's state of the JAX state ``jst`` (its initial tour, then the
+    JAX fields that the moves made), on the CPU."""
+    import dataclasses as dc
+
+    st = tenv.reset_from(to_torch(inst_np), torch.tensor(np.asarray(jst.rec_current)).long())
+    fields = {f.name: torch.tensor(np.asarray(getattr(jst, f.name))) for f in dc.fields(st)
+              if f.name != "locs"}
+    return dc.replace(st, **{k: (v.long() if not v.is_floating_point() else v)
+                             for k, v in fields.items()})
+
+
+def seeded_tree_like(shapes, seed):
+    """Weights of the structure of a Flax tree of shapes (`jax.eval_shape`
+    of an ``init``: no compile) from ``np.random.RandomState(seed)``:
+    kernels normal over sqrt(fan in), everything else normal·0.1."""
+    rs = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "kernel":
+            return (rs.standard_normal(leaf.shape) / np.sqrt(leaf.shape[0])).astype(np.float32)
+        return (0.1 * rs.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def trio_params(jpol, jst, seed):
+    """Seeded numpy weights in the tree of the JAX improvement policy ``jpol``."""
+    return seeded_tree_like(jax.eval_shape(jpol.init, jax.random.PRNGKey(0), jst), seed)
+
+
+def trio_jax_state(jenv, tenv, inst_np, seed):
+    """(JAX state, the port's) from one random initial tour drawn by the port."""
+    st = tenv.reset(to_torch(inst_np), torch.Generator().manual_seed(seed))
+    fields = {k: jnp.asarray(getattr(st, k).numpy()) for k in
+              ("locs", "rec_current", "rec_best", "cost_current", "cost_bsf", "visited_time",
+               "i")}
+    for k in ("rec_current", "rec_best", "visited_time", "i"):
+        fields[k] = fields[k].astype(jnp.int32)
+    if hasattr(st, "action_record"):
+        fields["action_record"] = jnp.asarray(st.action_record.numpy())
+    return _jax_state_class(jenv)(**fields), st
+
+
+def _jax_state_class(jenv):
+    from rl4co_tpu.envs.routing.pdp_ruin_repair import PDPRRState
+    from rl4co_tpu.envs.routing.tsp_kopt import TSPkoptState
+
+    return PDPRRState if jenv.name == "pdp_ruin_repair" else TSPkoptState

@@ -55,7 +55,10 @@ def test_the_port_has_the_modules_of_the_slice():
                  "envs/routing/mpdp.py", "envs/routing/mdcpdp.py", "data/tsplib.py",
                  "data/generate.py", "models/zoo/glop.py", "rl/critic.py", "rl/utils.py",
                  "rl/ppo.py", "rl/a2c.py", "envs/scheduling/smtwtp.py", "envs/eda/dpp.py",
-                 "envs/graph/flp.py", "envs/graph/mcp.py"):
+                 "envs/graph/flp.py", "envs/graph/mcp.py", "models/zoo/eas.py",
+                 "models/nn/pos_embeddings.py", "envs/routing/tsp_kopt.py",
+                 "envs/routing/pdp_ruin_repair.py", "models/zoo/dact.py", "rl/n_step_ppo.py",
+                 "models/zoo/n2s_encoder.py", "models/zoo/n2s.py", "models/zoo/neuopt.py"):
         assert os.path.join("rl4co_tpu_torch", want) in rel, want
     for source in ("pointer_kernel.cu", "local_search.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", source)), source

@@ -25,8 +25,9 @@ TINY = ["--num-loc", "6", "--batch-size", "4", "--train-size", "8", "--val-size"
 
 def test_model_names_equal_the_jax_tuple():
     assert MODEL_NAMES == JAX_MODEL_NAMES
-    assert PORTED == ["a2c", "am", "am-multienv", "am-xl", "deepaco", "gfacs", "mvmoe",
-                      "mvmoe-pomo", "polynet", "pomo", "ppo", "ptrnet", "symnco"]
+    assert PORTED == ["a2c", "am", "am-multienv", "am-xl", "dact", "deepaco", "gfacs", "mvmoe",
+                      "mvmoe-pomo", "n2s", "neuopt", "polynet", "pomo", "ppo", "ptrnet",
+                      "symnco"]
 
 
 def tiny_spec(model, **kw):
@@ -43,6 +44,8 @@ def test_build_and_train_one_epoch(model):
     spec = tiny_spec(model, **SMOKE_OVERRIDES[model])
     algo, trainer = build(spec, logger=lambda m: None)
     assert next(algo.policy.parameters()).device.type == "cpu"
+    if model in ("dact", "n2s", "neuopt"):   # the JAX smoke test's short horizons
+        algo.n_step, algo.T_train, algo.T_test, algo.ppo_epochs = 2, 2, 4, 1
     trainer.fit()
     val = trainer.history[-1].get("val/reward")
     assert val is not None and np.isfinite(float(val))
@@ -64,12 +67,25 @@ def test_unported_models_raise_with_their_roadmap_item(model):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--search", "eas-emb"], 13), (["--tensorboard", "tb"], 15), (["--mlflow", "ml"], 15),
+    (["--tensorboard", "tb"], 15), (["--mlflow", "ml"], 15),
     (["--dp", "2"], 15), (["--distributed"], 15)],
-    ids=["search", "tensorboard", "mlflow", "dp", "distributed"])
+    ids=["tensorboard", "mlflow", "dp", "distributed"])
 def test_unported_flags_raise_with_their_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
         main(["--model", "am", *TINY, *flags])
+
+
+@pytest.mark.parametrize("search", ["active_search", "eas-emb", "eas-lay"])
+def test_search_runs_after_training_and_prints_the_jax_line(search, capsys):
+    """``--search`` as the JAX command line runs it (`rl4co_tpu/train.py:316-335`):
+    the search on ``--search-size`` generated instances after training, one
+    JSON line with the mean best reward."""
+    main(["--model", "pomo", "--env", "cvrp", *TINY, "--baseline", "shared", "--precision",
+          "f32", "--search", search, "--search-size", "2", "--search-iters", "2"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"search"')]
+    assert len(lines) == 1 and lines[0]["search"] == search
+    assert np.isfinite(lines[0]["best_reward"]) and lines[0]["best_reward"] < 0
 
 
 def read_jsonl(path):
