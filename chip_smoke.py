@@ -43,7 +43,14 @@ their critic on TSP-50: the JAX package's PPO step replayed at full width
 50 times at B 512 and 400 times at B 128 under autograd), its A2C loss and
 gradients likewise, both trained through the train command line; and AM
 greedy on SMTWTP, DPP, MDPP, FLP and MCP held to the JAX package's CPU
-costs. Every phase prints one
+costs. Then the transductive search and the improvement trio. Then the rest of
+the zoo: MatNet at its published widths on ATSP-50 (the grouped kernel at D
+256 with 16 heads: multistart greedy held to the JAX CPU costs, the POMO loss
+and its gradients on JAX's sampled actions, the train command line), MDAM's
+five paths on TSP-50 and HAM on PDP-50 through the single-query kernel (held
+likewise, MDAM with Embedding-Glimpse and its KL loss), MatNet on FFSP20 and
+L2D on FJSP and JSSP (makespans equal to the JAX package's) with one JAX
+stepwise-PPO step replayed and `--model l2d-ppo` trained. Every phase prints one
 JSON line; any failure is a traceback and a non-zero exit. Without a card it
 exits non-zero and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
 script, while a kernel is being worked on.
@@ -195,6 +202,20 @@ CASES = [
     (128, None, 20, 128, 8, 0.7),       # ... and its train command line's, on TSP-20
     (1024, None, 100, 128, 8, 0.7),
     (1024, None, 100, 128, 8, "one_column"),
+    # the rest of the zoo: MatNet's multistart on ATSP-50 at D 256 with 16
+    # heads (head width 16), the evaluation dispatch (256), a train step and
+    # its validation (64 x 50), the replay (8 x 50), under masks of visited
+    # nodes and with one node left; K2 at that width (its W of 256 KB stays in
+    # global memory: the instance without W in shared memory); MDAM's five
+    # pointers at TSP-50 (1024 greedy, 256 with Embedding-Glimpse, 8
+    # replayed) and HAM's at PDP-50 (N 51, 1024 and 512)
+    (256, 50, 50, 256, 16, 0.7),
+    (64, 50, 50, 256, 16, 0.7),
+    (8, 50, 50, 256, 16, 0.3),
+    (64, 50, 50, 256, 16, "one_column"),
+    (1024, None, 50, 256, 16, 0.7),
+    (256, None, 50, 128, 8, 0.7),
+    (8, None, 50, 128, 8, 0.7),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -220,6 +241,10 @@ EXTRA_TIMES = [
     ("pointer_step_single", (1024, None, 53, 128, 8)),   # AM greedy on MDCPDP-50
     ("pointer_step_single", (128, None, 50, 128, 8)),    # a PPO minibatch on TSP-50
     ("pointer_step_single", (1024, None, 100, 128, 8)),  # AM greedy on DPP/MDPP/FLP/MCP
+    ("pointer_step_grouped", (256, 50, 50, 256, 16)),    # MatNet's multistart on ATSP-50
+    ("pointer_step_grouped", (64, 50, 50, 256, 16)),     # ... a MatNet train step
+    ("pointer_step_single", (1024, None, 50, 256, 16)),  # K2 at MatNet's width
+    ("pointer_step_single", (256, None, 50, 128, 8)),    # MDAM with Embedding-Glimpse
 ]
 
 
@@ -2413,12 +2438,14 @@ def check_am_sdvrp_gradients(device):
             **report}
 
 
-def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented):
+def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented,
+              profile_host=True):
     """``--model <model> --env <name> --num-loc <num_loc> <argv_tail>``
     through the train CLI in-process, one epoch: every train step
     (``instrumented.update``) synchronised, timed and its launches counted;
-    then one more step under the profiler, with the peak device memory of
-    that step. Launch counts start at 0 just before `main` and are read just
+    then one more step under the profiler (``profile_host=False``: the
+    device alone, far cheaper over 10^4 launches), with the peak device
+    memory of that step. Launch counts start at 0 just before `main` and are read just
     after. The report holds the trained algorithm under ``algo``."""
     from rl4co_tpu_torch import train
     from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
@@ -2444,7 +2471,7 @@ def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented)
     assert os.path.exists(os.path.join(tmp, f"{model}-{name}", "last.pt"))
     inst = algo.env.generate(int(argv[argv.index("--batch-size") + 1]), algo.generator, device)
     torch.cuda.reset_peak_memory_stats()
-    _, busy, n_launches, top = device_profile(lambda: algo.update(inst))
+    _, busy, n_launches, top = device_profile(lambda: algo.update(inst), host=profile_host)
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(s["ms"] for s in done)
     return {"algo": algo, "argv": argv, "steps": len(done),
@@ -2649,11 +2676,13 @@ NOISE_FACTOR = 5.0
 UPDATE_NOISE_SHARE = 1e-5
 # PPO through the train CLI at its defaults on TSP-20: the greedy cost on the
 # trainer's validation set must fall by PPO_LEARN_MARGIN over PPO_CLI_STEPS
-# steps (on the CPU the port's fell 6.03 -> 4.20 in 60 steps). TSP-50 does not learn in the phase's time: the
+# steps (on the CPU the port's fell 6.03 -> 4.20 in 60 steps; on the card 6.03 -> 4.12 in 60,
+# the sampled cost 8.73 -> 4.83 by step 40: cut to 40 steps to keep the script inside its 1 200
+# s on a slow host). TSP-50 does not learn in the phase's time: the
 # critic starts near 0 against rewards near -21, so every advantage is
 # negative and the first steps push the sampled tours down (on the CPU the
 # greedy cost rose 13.85 -> 18.30 in 40 steps); TSP-50 runs in the replay.
-PPO_CLI_LOC, PPO_CLI_STEPS, PPO_LEARN_MARGIN = 20, 60, 1.0
+PPO_CLI_LOC, PPO_CLI_STEPS, PPO_LEARN_MARGIN = 20, 40, 1.0
 A2C_CLI_STEPS = 4
 # SMTWTP, DPP, MDPP, FLP and MCP at their published sizes:
 # `python tests/test_torch_env_smtwtp_dpp_flp_mcp.py` writes the golden files
@@ -2963,7 +2992,8 @@ EAS_UPDATE_ATOL = 0.05        # in units of the learning rate ...
 EAS_BIG_GRAD = 1e-3           # ... where |g| exceeds this share of the largest
 EAS_UPDATE_NORM_RTOL = 5e-2   # Active Search's per-leaf update norms
 EAS_TIE_RTOL = 1e-6           # best rewards; two incumbents this close are a tie
-EAS_RUN_COUNT, EAS_RUN_ITERS = 64, 20
+# 10 iterations (cut from 20 for the script's time; 5 already beat POMO's dihedral-8 greedy)
+EAS_RUN_COUNT, EAS_RUN_ITERS = 64, 10
 
 
 def eas_instances(device, count):
@@ -3207,11 +3237,11 @@ TRIO_UPDATE_NORM_RTOL = 5e-2
 TRIO_MODELS = {"dact": ("rl4co_tpu_torch.models.zoo.dact", "DACT"),
                "n2s": ("rl4co_tpu_torch.models.zoo.n2s", "N2S"),
                "neuopt": ("rl4co_tpu_torch.models.zoo.neuopt", "NeuOpt")}
-# The command line's runs are cut from 20 DACT steps and 2 each of N2S and NeuOpt to 2, 1
+# The command line's runs are cut from 20 DACT steps and 2 each of N2S and NeuOpt to 1, 1
 # and 1: a step (250 moves in 50 segments, about 270 000 launches) takes 7-15 s on an NVIDIA
 # H100 80GB HBM3 at 700.00 W, host-bound, and each validation 1 000 moves (12-24 s); the full
 # depth would take the script past 1 100 s of its 1 200
-TRIO_CLI_STEPS = {"dact": 2, "n2s": 1, "neuopt": 1}
+TRIO_CLI_STEPS = {"dact": 1, "n2s": 1, "neuopt": 1}
 TRIO_EVAL_T = 200
 
 
@@ -3400,6 +3430,584 @@ def train_cli_trio(device, tmp, batch=TRIO_BATCH, val=TRIO_BATCH):
                      "device_busy_share": None if busy is None else busy / 20 / step_ms,
                      "device_launches_per_step": n_launches / 20, "top_kernels": top}}
     return report
+
+
+# ---- the rest of the zoo: MatNet on ATSP-50, MDAM on TSP-50, HAM on PDP-50,
+# MatNet on FFSP-20, L2D on FJSP and JSSP with stepwise PPO. The weights are
+# `random_params_numpy(ZOO_SEED, policy=...)`; the golden files hold the JAX
+# package's CPU results on the same weights (`python tests/test_torch_{matnet,
+# mdam,ham,matnet_ffsp,stepwise_ppo}.py`).
+
+ZOO_SEED = 19
+MATNET_FULL = dict(embed_dim=256, num_heads=16, num_encoder_layers=5, feedforward_hidden=512)
+FFSP20 = dict(num_stage=3, num_machine=4, num_job=20, min_time=2, max_time=10)
+FFSP_FULL = dict(num_stage=3, num_machine=4, embed_dim=256, num_heads=16,
+                 num_encoder_layers=3, feedforward_hidden=512)
+L2D_ATTN_FULL = dict(embed_dim=128, num_heads=8, num_encoder_layers=4)
+ZOO_LOSS_RTOL = 1e-5     # of the loss's terms' scale (mean |advantage · log-likelihood|)
+ZOO_GRAD_GAUGE = 1e-4    # of the largest gradient, per element (checked through checksums)
+PPO_METRIC_RTOL = 1e-3   # the last minibatch's metrics, after the Adam steps before it
+
+
+def zoo_policy(tree_name, cls, device, **kwargs):
+    """The port's policy ``cls`` with the zoo seed's weights, in eval mode."""
+    from rl4co_tpu_torch.convert import load_params, random_params_numpy
+
+    tree = random_params_numpy(ZOO_SEED, policy=tree_name, policy_kwargs=kwargs)
+    return load_params(cls(device=device, **kwargs), tree).eval()
+
+
+def record_launch_widths():
+    """Wrap the kernels' launch function so that every launch also records
+    ``(kernel, B, L, N, D, H)``; returns the counter it fills and the undo."""
+    from rl4co_tpu_torch.ops import pointer_kernel
+
+    inner, seen = pointer_kernel._launch, {}
+
+    def launch(q, k, v, lk, neg_bias, w_out, num_heads):
+        b, n, d = k.shape
+        key = (("pointer_step_single", b, None, n, d, num_heads) if q.ndim == 2
+               else ("pointer_step_grouped", b, q.shape[1], n, d, num_heads))
+        seen[key] = seen.get(key, 0) + 1
+        return inner(q, k, v, lk, neg_bias, w_out, num_heads)
+
+    pointer_kernel._launch = launch
+
+    def undo():
+        pointer_kernel._launch = inner
+
+    return seen, undo
+
+
+def launches_by_width(seen):
+    return [{"kernel": k[0], "B": k[1], "L": k[2], "N": k[3], "D": k[4], "H": k[5],
+             "launches": c} for k, c in sorted(seen.items(), key=str)]
+
+
+def hold_checksums(policy, gold, prefix="", gauge=ZOO_GRAD_GAUGE):
+    """The policy's gradients against the JAX package's per-leaf checksums
+    (sorted names; norm, sum and dot with `np.random.RandomState(0)`'s normal
+    vectors, drawn in that order): each within what an elementwise error of
+    ``gauge`` times the largest JAX gradient allows (sqrt(n), n and the
+    vector's 1-norm times it). Returns the largest share of that bound used."""
+    names = [str(n) for n in gold[prefix + "grad_names"]]
+    got = {k: p.grad for k, p in policy.named_parameters()}
+    assert sorted(got) == names, sorted(set(got) ^ set(names))
+    eps = gauge * float(gold[prefix + "grad_max"])
+    rs = np.random.RandomState(0)
+    worst, worst_at = 0.0, None
+    for i, name in enumerate(names):
+        assert got[name] is not None, name
+        g = got[name].detach().double().cpu().numpy()
+        r = rs.standard_normal(g.shape)
+        for value, ref, bound in (
+                (np.linalg.norm(g), gold[prefix + "grad_norm"][i], eps * np.sqrt(g.size)),
+                (g.sum(), gold[prefix + "grad_sum"][i], eps * g.size),
+                ((g * r).sum(), gold[prefix + "grad_dot"][i], eps * np.abs(r).sum())):
+            share = abs(value - ref) / bound
+            assert share <= 1.0, (name, value, ref, bound)
+            if share > worst:
+                worst, worst_at = share, name
+    return {"leaves": len(names), "grad_max": float(gold[prefix + "grad_max"]),
+            "gauge": gauge, "worst_share_of_bound": worst, "worst_at": worst_at}
+
+
+# MatNet's first layer starts from zero rows, whose attention depends on the
+# costs alone: the rows come out nearly equal and the instance norm divides f32
+# noise by their small spread. Either f32 encoder, JAX's or the port's, lies
+# about 1e-3 from the f64 one (row embeddings), and the port's f32
+# log-probabilities along JAX's tours lie up to 1.6e-3 nats from its f64 ones
+# (8 golden instances x 50 starts, CPU; `PERF.md` §6). A tour that leaves
+# JAX's where the two actions lie within this many nats left it at a tie of
+# f32 rounding.
+MATNET_TIE_ATOL = 4e-3
+# The same floor in the gradients: the port's f32 gradients of the replayed
+# POMO loss lie up to 7.2e-3 of the largest from its f64 ones (layer 0's row
+# block and first norm; CPU, the golden file's 8 instances); the checksums are
+# held at this gauge, and the share of it used is reported.
+MATNET_GRAD_GAUGE = 1e-2
+
+
+def multistart_departures(env, policy, inst, jax_actions, device):
+    """The JAX package's multistart greedy tours ``[B, S, N]`` replayed
+    through ``policy`` (one dispatch, every start a query of its instance):
+    per row (repeat-major ``[S*B]``) the first step where the port's own
+    greedy choice leaves JAX's tour (-1: never), the log-probability gap
+    there, and the reward of JAX's tour (the port's env: ATSP's reward is
+    JAX's to the bit, `tests/test_torch_scheduling_envs.py`)."""
+    from rl4co_tpu_torch.decoding import DecodeSpec, process_logits_spec
+    from rl4co_tpu_torch.utils.ops import batchify
+
+    spec = DecodeSpec(kind="greedy", tanh_clipping=10.0)
+    b, s, n = jax_actions.shape
+    inst = {k: torch.as_tensor(v).to(device) for k, v in inst.items()}
+    acts = torch.as_tensor(jax_actions.astype(np.int64)).to(device).transpose(0, 1)
+    acts = acts.reshape(s * b, n)                                 # repeat-major rows
+    with torch.no_grad():
+        cache = policy.precompute(policy.encode(inst))
+        state = env.reset(batchify(inst, s))
+        first = torch.full((s * b,), -1, dtype=torch.long, device=device)
+        gap = torch.zeros((s * b,), device=device)
+        for t in range(n):
+            mask = env.action_mask(state)
+            if t > 0:    # the first action is the start, forced
+                lp = process_logits_spec(policy.decode_step(cache, state, mask, s).float(),
+                                         mask, spec)
+                own = lp.argmax(dim=-1)
+                leave = (own != acts[:, t]) & (first < 0) & ~state.done
+                g = (lp.gather(1, own[:, None]) - lp.gather(1, acts[:, t:t + 1]))[:, 0]
+                gap = torch.where(leave, g, gap)
+                first = torch.where(leave, t, first)
+            state = env.step(state, acts[:, t])
+        jax_reward = env.reward(state, acts)
+    return first.cpu().numpy(), gap.cpu().numpy(), jax_reward.cpu().numpy()
+
+
+def hold_multistart(env, policy, inst, gold_cost, jax_actions, device, what):
+    """Every (instance, start) tour of the port's multistart greedy against
+    JAX's: a tour as JAX's has JAX's cost to the bit, a departure starts at a
+    near-tie (gap at most MATNET_TIE_ATOL). Then the instances' best costs:
+    those of the instances none of whose starts departed equal JAX's, their
+    mean within ROUTING_MEAN_RTOL; the mean over all instances, which a tour
+    that left JAX's at a tie moves, is reported beside it."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models import rollout
+
+    s = jax_actions.shape[1]
+    with torch.no_grad():
+        out = rollout(policy, env, inst, DecodeSpec(kind="greedy", multistart=True,
+                                                    num_starts=s, tanh_clipping=10.0),
+                      device=device)
+    cost = -out.reward.cpu().numpy()                               # [S*B]
+    first, gap, jax_reward = multistart_departures(env, policy, inst, jax_actions, device)
+    left = first >= 0
+    assert (gap[left] <= MATNET_TIE_ATOL).all(), (
+        f"{what}: left JAX's tour {int((gap[left] > MATNET_TIE_ATOL).sum())} times with "
+        f"gaps up to {gap[left].max():.3e}")
+    assert np.array_equal(cost[~left], -jax_reward[~left]), f"{what}: a tour as JAX's, another cost"
+    best = cost.reshape(s, -1).min(0)
+    assert np.array_equal(-jax_reward.reshape(s, -1).max(0), gold_cost), what
+    rel = np.abs(best - gold_cost) / gold_cost
+    kept = ~left.reshape(s, -1).any(0)            # no start of the instance departed
+    assert kept.any(), f"{what}: every instance left JAX's tours somewhere"
+    assert np.array_equal(best[kept], gold_cost[kept]), what
+    mean_rel = float(abs(best[kept].mean() - gold_cost[kept].mean()) / gold_cost[kept].mean())
+    assert mean_rel <= ROUTING_MEAN_RTOL, f"{what}: mean off by {mean_rel:.2e}"
+    return {"instances": len(gold_cost), "starts": s, "mean_cost": float(best.mean()),
+            "reference_mean_cost": float(gold_cost.mean()),
+            "mean_rel_err_all": float(abs(best.mean() - gold_cost.mean()) / gold_cost.mean()),
+            "instances_without_departure": int(kept.sum()), "mean_rel_err": mean_rel,
+            "share_instances_within_1e-5": float((rel <= ROUTING_COST_RTOL).mean()),
+            "max_rel_err": float(rel.max()), "tours": int(cost.size),
+            "tours_departed_at_near_ties": int(left.sum()),
+            "departure_gap_max": float(gap[left].max()) if left.any() else 0.0,
+            "departure_gap_median": float(np.median(gap[left])) if left.any() else 0.0,
+            "tie_atol": MATNET_TIE_ATOL}
+
+
+def drive_matnet_atsp50(device, tmp, count=None, cli_batch=64, cli_steps=4):
+    """MatNet at its published widths on ATSP-50: multistart greedy on the
+    golden file's 256 JAX-generated instances (one dispatch, K1 at (256, 50,
+    50, 256, 16)) held to the JAX CPU costs, departures proven near-ties; the
+    POMO loss and every gradient on JAX's sampled actions for 8 instances
+    (K1 under autograd); 4 train-CLI steps at 64 x 50."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.matnet import MatNet, MatNetPolicy
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+    from rl4co_tpu_torch.utils.ops import unbatchify
+
+    gold = golden_npz("matnet_atsp50.npz")
+    for k in ("cost_matrix", "cost", "actions"):   # ``count``: a rehearsal's slice
+        gold[k] = gold[k][:count]
+    env = get_env("atsp", num_loc=50)
+    policy = zoo_policy("matnet", MatNetPolicy, device, **MATNET_FULL)
+    inst = {"cost_matrix": gold["cost_matrix"]}
+    n_inst = len(gold["cost"])
+    widths, undo = record_launch_widths()
+    try:
+        reset_launches()
+        res = evaluate_policy(env, policy, inst, "multistart_greedy", batch_size=n_inst,
+                              device=device)
+        eval_launches = dict(LAUNCHES)
+        greedy = hold_multistart(env, policy, inst, gold["cost"], gold["actions"], device,
+                                 "matnet_atsp50")
+        eval_mean = float(-np.asarray(res["rewards"]).mean())
+        assert abs(eval_mean - greedy["mean_cost"]) <= 1e-6 * eval_mean, (
+            eval_mean, greedy["mean_cost"])   # the eval CLI's path gives the same tours
+        greedy.update(seconds=res["inference_time"], launches=eval_launches)
+        profiled = profile_dispatch(env, policy, inst, device, "multistart_greedy", n_inst)
+
+        # the replayed POMO loss and its gradients
+        n_rep = gold["replay_actions"].shape[0] // 50
+        policy.train().requires_grad_(True)
+        algo = MatNet(env, policy=policy, train_spec=DecodeSpec(kind="sampling",
+                                                                tanh_clipping=10.0))
+        reset_launches()
+        calls, undo_bwd = count_backward_recomputes()
+        try:
+            loss, (metrics, out) = algo.loss({"cost_matrix": gold["cost_matrix"][:n_rep]},
+                                             replay_actions=gold["replay_actions"])
+            loss.backward()
+        finally:
+            undo_bwd()
+        replay_launches = dict(LAUNCHES)
+        r = unbatchify(out.reward, 50).detach().double()
+        ll = unbatchify(out.log_likelihood, 50).detach().double()
+        scale = float(((r - r.mean(-1, keepdim=True)) * ll).abs().mean())
+        loss_err = abs(loss.item() - float(gold["loss"]))
+        assert loss_err <= ZOO_LOSS_RTOL * scale, (loss.item(), float(gold["loss"]), scale)
+        replay = {"instances": n_rep, "loss": loss.item(), "jax_loss": float(gold["loss"]),
+                  "loss_err_over_terms_scale": loss_err / scale,
+                  "gradients": hold_checksums(policy, gold, gauge=MATNET_GRAD_GAUGE),
+                  "pointer_recomputes": len(calls), "launches": replay_launches}
+        policy.zero_grad(set_to_none=True)
+        policy.eval().requires_grad_(False)
+        cli_calls, undo_bwd = count_backward_recomputes()
+        try:
+            report, cli_launches = train_cli(
+                device, tmp, "matnet", "atsp", 50, [
+                    "--batch-size", str(cli_batch), "--train-size", str(cli_batch * cli_steps),
+                    "--val-size", str(cli_batch)], cli_steps, REINFORCE, profile_host=False)
+        finally:
+            undo_bwd()
+        del report["algo"]
+        # 49 recomputes per step (the first step's logits are not used), the
+        # profiled step's among them
+        assert len(cli_calls) == 49 * (cli_steps + 1), len(cli_calls)
+        report["pointer_recomputes"] = len(cli_calls)
+    finally:
+        undo()
+    # the warm-up dispatch and the timed one, 50 decode steps each; the replay
+    # 50 steps under autograd and 49 recomputes in the backward (the first
+    # step's logits are not used: its action is the start)
+    assert eval_launches["pointer_step_grouped"] == 2 * 50, eval_launches
+    assert replay_launches["pointer_step_grouped"] == 50 and len(calls) == 49, (
+        replay_launches, len(calls))
+    k1_full = [w for w in widths if w[0] == "pointer_step_grouped" and w[2:] == (50, 50, 256, 16)]
+    assert k1_full, widths
+    launches = {k: eval_launches[k] + replay_launches[k] + cli_launches[k] for k in LAUNCHES}
+    return {"model": "MatNet 256/16 heads/5 layers/FFN 512 instance norm, ATSP-50, POMO "
+                     "multistart over 50 starts, seeded weights",
+            "greedy_multistart": greedy, "profiled_dispatch": profiled,
+            "replayed_pomo_loss": replay, "cli": report,
+            "launches_by_width": launches_by_width(widths),
+            "tolerances": {"mean_rtol": ROUTING_MEAN_RTOL, "cost_rtol": ROUTING_COST_RTOL,
+                           "tie_atol": MATNET_TIE_ATOL, "loss_rtol_of_terms": ZOO_LOSS_RTOL,
+                           "grad_gauge": MATNET_GRAD_GAUGE},
+            "launches": launches}, launches
+
+
+def hold_paths(env, policy, inst, cost, gold_cost, gold_actions, device, what):
+    """Every path's greedy costs ``[B, P]`` against JAX's, each path's
+    departures proven near-ties; then the best path's mean."""
+    reports = []
+    for p in range(cost.shape[1]):
+        first, gap = greedy_departures(env, policy.path(p), inst, gold_actions[p], device)
+        reports.append(hold_costs_at_ties(cost[:, p], gold_cost[:, p], first, gap,
+                                          f"{what} path {p}"))
+    best, ref = cost.min(1), gold_cost.min(1)
+    best_rel = float(abs(best.mean() - ref.mean()) / ref.mean())
+    assert best_rel <= ROUTING_MEAN_RTOL, (what, best_rel)
+    return {"paths": reports, "best_path_mean_cost": float(best.mean()),
+            "jax_best_path_mean_cost": float(ref.mean()), "best_path_mean_rel_err": best_rel}
+
+
+def drive_mdam_tsp50(device, tmp, count=None, cli_batch=512, cli_steps=4):
+    """MDAM at its published widths (AM 128/8/3/512 batch norm, 5 paths) on
+    the first 1 024 canonical TSP-50 instances: every path's greedy through
+    K2 held to the JAX CPU costs; Embedding-Glimpse every 10 steps on 256 of
+    them likewise; the loss with its KL on JAX's sampled actions for 8
+    instances with every gradient; 4 train-CLI steps at batch 512."""
+    from rl4co_tpu_torch.data.io import load_instances_npz
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.mdam import MDAM, MDAMPolicy
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    gold = golden_npz("mdam_tsp50.npz")
+    env = get_env("tsp", num_loc=50)
+    locs = load_instances_npz(os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz"))["locs"]
+    for k in ("greedy_cost", "eg_cost"):   # ``count``: a rehearsal's slice
+        gold[k] = gold[k][:count]
+    for k in ("greedy_actions", "eg_actions"):
+        gold[k] = gold[k][:, :count]
+    inst = {"locs": locs[:gold["greedy_cost"].shape[0]]}
+    policy = zoo_policy("mdam", MDAMPolicy, device)
+    algo = MDAM(env, policy, train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+    widths, undo = record_launch_widths()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = -algo.path_rewards(inst).cpu().numpy()
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        eval_launches = dict(LAUNCHES)
+        greedy = hold_paths(env, policy, inst, cost, gold["greedy_cost"],
+                            gold["greedy_actions"], device, "mdam_tsp50")
+        greedy.update(seconds=greedy_s, launches=eval_launches)
+        _, busy, n_launches, top = device_profile(lambda: algo.path_rewards(inst), host=False)
+        greedy["profiled"] = {"device_busy_ms": busy, "device_launches": n_launches,
+                              "device_busy_share": busy / (greedy_s * 1e3), "top_kernels": top}
+
+        gap = int(gold["eg_gap"])
+        eg_policy = zoo_policy("mdam", MDAMPolicy, device, eg_step_gap=gap)
+        eg_algo = MDAM(env, eg_policy)
+        n_eg = gold["eg_cost"].shape[0]
+        reset_launches()
+        eg_cost, eg_actions = eg_rollouts(eg_algo, {"locs": inst["locs"][:n_eg]}, device)
+        eg_launches = dict(LAUNCHES)
+        # EG changes the cache between segments: its tours are held by cost
+        # against JAX's, a departure shown by the tour
+        same_tour = np.array([[np.array_equal(a, b) for a, b in zip(
+            p_actions, gold["eg_actions"][p])] for p, p_actions in enumerate(eg_actions)])
+        eg_rel = np.abs(eg_cost - gold["eg_cost"]) / gold["eg_cost"]
+        assert (eg_rel[same_tour.T] <= ROUTING_COST_RTOL).all()
+        eg_mean_rel = float(abs(eg_cost.min(1).mean() - gold["eg_cost"].min(1).mean())
+                            / gold["eg_cost"].min(1).mean())
+        assert eg_mean_rel <= ROUTING_MEAN_RTOL, eg_mean_rel
+        assert same_tour.mean() >= ROUTING_SAME_SHARE, same_tour.mean()
+        eg = {"instances": n_eg, "gap": gap, "best_path_mean_cost": float(eg_cost.min(1).mean()),
+              "jax_best_path_mean_cost": float(gold["eg_cost"].min(1).mean()),
+              "best_path_mean_rel_err": eg_mean_rel, "share_tours_as_jax": float(same_tour.mean()),
+              "launches": eg_launches}
+
+        policy.train().requires_grad_(True)
+        n_rep = gold["replay_actions"].shape[1]
+        reset_launches()
+        loss, (metrics, _) = algo.loss({"locs": inst["locs"][:n_rep]},
+                                       replay_actions=gold["replay_actions"])
+        loss.backward()
+        replay_launches = dict(LAUNCHES)
+        scale = float(gold["terms_scale"]) + algo.kl_coef * abs(float(gold["kl_divergence"]))
+        loss_err = abs(loss.item() - float(gold["loss"]))
+        assert loss_err <= ZOO_LOSS_RTOL * scale, (loss.item(), float(gold["loss"]), scale)
+        kl_rel = abs(metrics["kl_divergence"].item() - float(gold["kl_divergence"])) / abs(
+            float(gold["kl_divergence"]))
+        assert kl_rel <= ZOO_LOSS_RTOL, kl_rel
+        replay = {"instances": n_rep, "loss": loss.item(), "jax_loss": float(gold["loss"]),
+                  "loss_err_over_terms_scale": loss_err / scale, "kl_rel_err": kl_rel,
+                  "gradients": hold_checksums(policy, gold), "launches": replay_launches}
+        policy.zero_grad(set_to_none=True)
+        policy.eval().requires_grad_(False)
+        report, cli_launches = train_cli(
+            device, tmp, "mdam", "tsp", 50, [
+                "--batch-size", str(cli_batch), "--train-size", str(cli_batch * cli_steps),
+                "--val-size", str(cli_batch)], cli_steps, REINFORCE, profile_host=False)
+        del report["algo"]
+    finally:
+        undo()
+    # five paths of 50 steps each; the loss decodes each path's first step once more
+    assert eval_launches["pointer_step_single"] == 5 * 50, eval_launches
+    assert all(s["pointer_step_single"] == 5 * 51 for s in report["launches_per_step"]), report
+    launches = {k: eval_launches[k] + eg_launches[k] + replay_launches[k] + cli_launches[k]
+                for k in LAUNCHES}
+    return {"model": "MDAM, 5 paths, AM 128/8/3/512 batch norm, TSP-50, seeded weights",
+            "greedy": greedy, "embedding_glimpse": eg, "replayed_loss": replay, "cli": report,
+            "launches_by_width": launches_by_width(widths),
+            "launches": launches}, launches
+
+
+def eg_rollouts(algo, inst, device):
+    """Every path's Embedding-Glimpse greedy costs ``[B, P]`` and tours
+    ``[P, B, N]`` (numpy)."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.policies.constructive import instances_to_device
+    from rl4co_tpu_torch.models.zoo.mdam import rollout_eg
+
+    inst = instances_to_device(inst, device)
+    with torch.no_grad():
+        emb, h_old = algo.policy.encode_with_hidden(inst)
+        outs = [rollout_eg(algo.policy, algo.env, inst, algo.policy.precompute_path(emb, p),
+                           h_old, DecodeSpec(kind="greedy"), p)
+                for p in range(algo.policy.num_paths)]
+    return (-torch.stack([o.reward for o in outs], 1).cpu().numpy(),
+            [o.actions.cpu().numpy() for o in outs])
+
+
+def drive_ham_pdp50(device, tmp, count=None, cli_batch=512, cli_steps=4):
+    """HAM (AM 128/8/3/512 batch norm with the heterogeneous encoder) on
+    PDP-50: greedy on the golden file's 1 024 JAX-generated instances in one
+    dispatch through K2 (N 51), held to the JAX CPU costs with departures
+    proven near-ties; 4 train-CLI steps at batch 512."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.ham import HAMPolicy
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+    from rl4co_tpu_torch.tasks.eval import evaluate_policy
+
+    gold = golden_npz("ham_pdp50.npz")
+    env = get_env("pdp", num_loc=50)
+    policy = zoo_policy("ham", HAMPolicy, device)
+    for k in ("locs", "depot", "cost", "actions"):   # ``count``: a rehearsal's slice
+        gold[k] = gold[k][:count]
+    inst = {"locs": gold["locs"], "depot": gold["depot"]}
+    count = len(gold["cost"])
+    reset_launches()
+    res = evaluate_policy(env, policy, inst, "greedy", batch_size=count, device=device)
+    eval_launches = dict(LAUNCHES)
+    first, gap = greedy_departures(env, policy, inst, gold["actions"], device)
+    greedy = hold_costs_at_ties(-np.asarray(res["rewards"]), gold["cost"], first, gap,
+                                "ham_pdp50")
+    greedy.update(seconds=res["inference_time"], launches=eval_launches)
+    profiled = profile_dispatch(env, policy, inst, device, "greedy", count)
+    report, cli_launches = train_cli(
+        device, tmp, "ham", "pdp", 50, [
+            "--batch-size", str(cli_batch), "--train-size", str(cli_batch * cli_steps),
+            "--val-size", str(cli_batch)], cli_steps, REINFORCE, profile_host=False)
+    del report["algo"]
+    assert eval_launches["pointer_step_single"] == 2 * env.max_steps, eval_launches  # + warm-up
+    launches = {k: eval_launches[k] + cli_launches[k] for k in LAUNCHES}
+    return {"model": "HAM 128/8/3/512 batch norm, PDP-50, seeded weights", "greedy": greedy,
+            "profiled_dispatch": profiled, "cli": report, "launches": launches}, launches
+
+
+def timed_no_grad(fn):
+    """``fn()`` without a graph, synchronised: (result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_matnet_ffsp20(device, count=None):
+    """MatNet on the MatNet paper's FFSP20 (3 stages x 4 machines, 20 jobs,
+    run times 2-9) at 256 wide, 16 heads, 3 layers, FFN 512: greedy on the
+    golden file's 256 JAX-generated instances in one dispatch, makespans and
+    schedules equal to the JAX package's. The pointer has an output bias:
+    no kernel."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models import rollout
+    from rl4co_tpu_torch.models.zoo.matnet_ffsp import MatNetFFSPPolicy
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    gold = golden_npz("matnet_ffsp20.npz")
+    env = get_env("ffsp", **FFSP20)
+    policy = zoo_policy("matnet_ffsp", MatNetFFSPPolicy, device, **FFSP_FULL)
+    for k in ("run_time", "makespan", "actions"):   # ``count``: a rehearsal's slice
+        gold[k] = gold[k][:count]
+    inst = {"run_time": gold["run_time"].astype(np.int64)}
+
+    def run():
+        return rollout(policy, env, inst, DecodeSpec(kind="greedy"), device=device)
+
+    reset_launches()
+    run()   # warm-up
+    out, seconds = timed_no_grad(run)
+    launches = dict(LAUNCHES)
+    makespan = -out.reward.cpu().numpy()
+    assert np.array_equal(makespan, gold["makespan"]), np.abs(makespan - gold["makespan"]).max()
+    assert np.array_equal(out.actions.cpu().numpy(), gold["actions"].astype(np.int64))
+    _, busy, n_launches, top = device_profile(lambda: timed_no_grad(run), host=False)
+    waits = float((gold["actions"] == FFSP20["num_job"]).mean())
+    return {"model": "MatNet-FFSP 256/16 heads/3 layers/FFN 512, FFSP20 (3x4 machines, 20 "
+                     "jobs, run times 2-9), seeded weights",
+            "instances": len(makespan), "mean_makespan": float(makespan.mean()),
+            "makespans_equal": True, "schedules_equal": True,
+            "share_of_wait_actions": waits, "seconds": seconds,
+            "profiled": {"device_busy_ms": busy, "device_launches": n_launches,
+                         "device_busy_share": busy / (seconds * 1e3), "top_kernels": top},
+            "launches": launches}, launches
+
+
+def drive_l2d_fjsp_jssp(device, tmp, count=None, cli_batch=64, cli_steps=4):
+    """L2DPolicy (JAX defaults) greedy on 256 FJSP 10x5 instances and
+    L2DAttnPolicy 128/8/4 on 256 JSSP 10x10 instances, makespans and
+    schedules equal to the JAX package's; one JAX StepwisePPO step replayed
+    on 64 FJSP 10x5 instances (its draws): the transitions, the first
+    minibatch's loss and gradients, the step's metrics; `--model l2d-ppo`
+    through the train command line for 4 steps. No kernel."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models.zoo.l2d import (L2DAttnPolicy, L2DPolicy, l2d_attn_rollout,
+                                                l2d_rollout)
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.stepwise_ppo import StepwisePPO
+
+    gold = golden_npz("l2d_fjsp_jssp.npz")
+    keys = ("proc_times", "pad_mask", "start_op_per_job", "end_op_per_job")
+    reset_launches()
+    greedy = {}
+    for name, env_kw, tree, cls, fn, kw in (
+            ("fjsp", dict(num_jobs=10, num_mas=5), "l2d", L2DPolicy, l2d_rollout, {}),
+            ("jssp", dict(num_jobs=10, num_mas=10), "l2d_attn", L2DAttnPolicy,
+             l2d_attn_rollout, L2D_ATTN_FULL)):
+        env = get_env(name, **env_kw)
+        policy = zoo_policy(tree, cls, device, **kw)
+        inst = {k: torch.as_tensor(gold[f"{name}_{k}"][:count]).to(device) for k in keys}
+
+        def run():
+            return fn(policy, env, inst, DecodeSpec(kind="greedy"))
+
+        run()
+        out, seconds = timed_no_grad(run)
+        makespan = -out.reward.cpu().numpy()
+        assert np.array_equal(makespan, gold[f"{name}_makespan"][:count]), name
+        assert np.array_equal(out.actions.cpu().numpy(), gold[f"{name}_actions"][:count]), name
+        _, busy, n_launches, top = device_profile(lambda: timed_no_grad(run), host=False)
+        greedy[name] = {"instances": len(makespan), "mean_makespan": float(makespan.mean()),
+                        "makespans_equal": True, "schedules_equal": True, "seconds": seconds,
+                        "device_busy_ms": busy, "device_launches": n_launches,
+                        "device_busy_share": busy / (seconds * 1e3), "top_kernels": top}
+
+    # one JAX StepwisePPO step replayed
+    policy = zoo_policy("l2d", L2DPolicy, device, with_critic=True).train()
+    mb = gold["ppo_minibatches"].shape[1]
+    algo = StepwisePPO(get_env("fjsp", num_jobs=10, num_mas=5), policy, mini_batch_size=mb)
+    inst = {k: gold[f"ppo_{k}"] for k in keys}
+    collected = algo.collect({k: torch.as_tensor(v).to(device) for k, v in inst.items()},
+                             torch.as_tensor(gold["ppo_actions"].astype(np.int64)).to(device))
+    old_lp, rewards = collected[3].cpu().numpy(), collected[4].cpu().numpy()
+    lp_err = float(np.abs(old_lp - gold["ppo_old_logp"]).max())
+    rew_err = float(np.abs(rewards - gold["ppo_rewards"]).max())
+    assert lp_err <= 1e-5 and rew_err <= 1e-5, (lp_err, rew_err)
+    seen = {}
+
+    def on_minibatch(i, loss, metrics):
+        if i == 0:
+            seen["loss"] = loss.item()
+            seen["gradients"] = hold_checksums(policy, gold, prefix="ppo_")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = algo.update(inst, replay_actions=gold["ppo_actions"].astype(np.int64),
+                          minibatches=gold["ppo_minibatches"], on_minibatch=on_minibatch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    first_rel = abs(seen["loss"] - float(gold["ppo_first_loss"])) / abs(
+        float(gold["ppo_first_loss"]))
+    assert first_rel <= ZOO_LOSS_RTOL, first_rel
+    metric_rel = {k: abs(metrics[k].item() - float(gold[f"ppo_metric_{k}"]))
+                  / abs(float(gold[f"ppo_metric_{k}"]))
+                  for k in ("loss", "surrogate_loss", "value_loss", "entropy")}
+    assert max(metric_rel.values()) <= PPO_METRIC_RTOL, metric_rel
+    assert metrics["reward"].item() == float(gold["ppo_metric_reward"])
+    replay = {"instances": len(gold["ppo_actions"]), "minibatches": len(gold["ppo_minibatches"]),
+              "old_logp_max_abs_err": lp_err, "reward_max_abs_err": rew_err,
+              "first_minibatch_loss_rel_err": first_rel, "first_minibatch": seen["gradients"],
+              "metrics_rel_err": metric_rel, "step_seconds": step_s}
+    report, cli_launches = train_cli(
+        device, tmp, "l2d-ppo", "tsp", 20, [
+            "--batch-size", str(cli_batch), "--train-size", str(cli_batch * cli_steps),
+            "--val-size", str(cli_batch)], cli_steps, StepwisePPO, profile_host=False)
+    del report["algo"]
+    launches = dict(LAUNCHES)
+    assert sum(launches.values()) == 0, launches   # no pointer kernel on these paths
+    return {"models": {"fjsp": "L2DPolicy 64/2 layers/actor 64 instance norm, FJSP 10x5",
+                       "jssp": "L2DAttnPolicy 128/8/4 batch norm, JSSP 10x10",
+                       "ppo": "L2DPolicy with critic, StepwisePPO (2 epochs, minibatches of "
+                              "128, clip 0.2), FJSP 10x5; the CLI on FJSP's defaults (5x3)"},
+            "greedy": greedy, "stepwise_ppo_replay": replay, "cli": report,
+            "tolerances": {"first_loss_rtol": ZOO_LOSS_RTOL, "grad_gauge": ZOO_GRAD_GAUGE,
+                           "metrics_rtol": PPO_METRIC_RTOL},
+            "launches": launches}, launches
 
 
 def main() -> int:
@@ -3684,6 +4292,24 @@ def main() -> int:
           "launches": trio_launches})
     trio_seconds = time.perf_counter() - t_trio
 
+    # 15. the rest of the zoo: MatNet on ATSP-50 (K1 at D 256, 16 heads), MDAM
+    # on TSP-50 and HAM on PDP-50 (K2), MatNet on FFSP20 and L2D on FJSP and
+    # JSSP with stepwise PPO (no kernel), each held to the JAX CPU results of
+    # the same weights and instances
+    t_zoo = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report, matnet_launches = drive_matnet_atsp50(device, tmp)
+        emit({"phase": "matnet_atsp50", "card": smi, **report})
+        report, mdam_launches = drive_mdam_tsp50(device, tmp)
+        emit({"phase": "mdam_tsp50", "card": smi, **report})
+        report, ham_launches = drive_ham_pdp50(device, tmp)
+        emit({"phase": "ham_pdp50", "card": smi, **report})
+        report, ffsp_launches = drive_matnet_ffsp20(device)
+        emit({"phase": "matnet_ffsp20", "card": smi, **report})
+        report, l2d_launches = drive_l2d_fjsp_jssp(device, tmp)
+        emit({"phase": "l2d_fjsp_jssp", "card": smi, **report})
+    zoo_seconds = time.perf_counter() - t_zoo
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -3764,6 +4390,18 @@ def main() -> int:
             path, counts)
         by_path[path] = counts
     by_path["training_improvement_trio"] = trio_launches
+    # the rest of the zoo: K1 on MatNet's multistart (evaluation, the replay
+    # under autograd, the train CLI); K2 on MDAM's five paths and HAM's
+    # decoder; MatNet-FFSP's pointer (an output bias) and L2D reach no kernel
+    assert matnet_launches["pointer_step_grouped"] > 0, matnet_launches
+    assert mdam_launches["pointer_step_single"] > 0, mdam_launches
+    assert ham_launches["pointer_step_single"] > 0, ham_launches
+    assert sum(ffsp_launches.values()) == 0, ffsp_launches
+    by_path["zoo_matnet_atsp50"] = matnet_launches
+    by_path["zoo_mdam_tsp50"] = mdam_launches
+    by_path["zoo_ham_pdp50"] = ham_launches
+    by_path["zoo_matnet_ffsp20"] = ffsp_launches
+    by_path["zoo_l2d_fjsp_jssp"] = l2d_launches
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -3780,7 +4418,8 @@ def main() -> int:
           "nar_phases_seconds": nar_seconds, "multi_task_vrp_phases_seconds": vrp_seconds,
           "routing_rest_and_glop_phases_seconds": glop_seconds,
           "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds,
-          "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds})
+          "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds,
+          "zoo_phases_seconds": zoo_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,10 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
 - the multi-env policy's per-env embeddings keep their tree's names
   (``init_embeddings_op``, ``context_embeddings_pctsp``, ...), which
   `models/policies/multi_env.py` registers as they are;
+- MatNet's mixer parameters (``mix_W1``, ``mix_b1``, ``mix_W2``, ``mix_b2``)
+  go as they are stored, the uniform draw (the forward shifts them), and so
+  do MatNet-FFSP's ``no_job_emb`` and ``stage_emb`` and L2D-attention's
+  ``dummy``;
 - the NAR encoders (`models/zoo/nargnn.py`, `gfacs.py`) register their
   embeddings under Flax's automatic names (``TSPInitEmbedding_0``,
   ``VRPEdgeEmbedding_0``, ...) and the rest under the tree's names.
@@ -51,7 +55,8 @@ import torch
 # leaves copied as they are, by their last path component
 _RAW_LEAVES = ("bias", "scale", "project_out_kernel", "project_out_bias", "W_placeholder",
                "w_gate", "v", "decoder_input0", "depot_copy_offset", "linear_V1", "linear_V2",
-               "init_query", "weight_ih", "weight_hh", "bias_ih", "bias_hh")
+               "init_query", "weight_ih", "weight_hh", "bias_ih", "bias_hh",
+               "mix_W1", "mix_b1", "mix_W2", "mix_b2", "no_job_emb", "stage_emb", "dummy")
 # a Flax GRUCell's sub-modules, in the order of torch.nn.GRUCell's stacked rows
 _GRU_INPUT, _GRU_HIDDEN = ("ir", "iz", "in"), ("hr", "hz", "hn")
 
@@ -171,16 +176,70 @@ _TREE_POLICIES = ("am", "symnco", "mvmoe", "polynet", "ptrnet", "multienv", "mul
 
 
 def _check_env(env_name: str) -> None:
-    """Raise for an env the port has no embeddings of: NotImplementedError
-    naming its ROADMAP.md item for a JAX env not ported yet, else ValueError."""
-    from rl4co_tpu_torch.envs import ENV_REGISTRY, UNPORTED_ENVS
+    """Raise ValueError for an env that is in neither package."""
+    from rl4co_tpu_torch.envs import ENV_REGISTRY
 
-    if env_name in UNPORTED_ENVS:
-        raise NotImplementedError(
-            f"env '{env_name}' and its embeddings are not ported to rl4co_tpu_torch yet "
-            f"(ROADMAP.md, item {UNPORTED_ENVS[env_name]})")
     if env_name not in ENV_REGISTRY:
         raise ValueError(f"no env '{env_name}' in the JAX package or the port")
+
+
+def _zoo_policy(policy: str, kwargs: dict) -> torch.nn.Module:
+    """The port's policy ``policy`` of the rest of the zoo, built on the meta
+    device (shapes only, no draw from torch's stream)."""
+    import importlib
+
+    module, cls = _MODULE_TREES[policy]
+    make = getattr(importlib.import_module(f"rl4co_tpu_torch.models.zoo.{module}"), cls)
+    with torch.device("meta"):
+        return make(**{**kwargs, "device": "meta"})
+
+
+# the rest of the zoo: tree name -> (zoo module, class); their trees are drawn
+# from the port's module (`_module_tree`), whose sub-modules carry the Flax names
+_MODULE_TREES = {
+    "matnet": ("matnet", "MatNetPolicy"),
+    "matnet_ffsp": ("matnet_ffsp", "MatNetFFSPPolicy"),
+    "mdam": ("mdam", "MDAMPolicy"),
+    "ham": ("ham", "HAMPolicy"),
+    "l2d": ("l2d", "L2DPolicy"),
+    "l2d_attn": ("l2d", "L2DAttnPolicy"),
+}
+# raw parameters of those trees, drawn uniform in [0, high) as Flax draws them
+_UNIFORM_LEAVES = {"W_placeholder": 2.0, "no_job_emb": 1.0, "stage_emb": 1.0, "dummy": 1.0,
+                   "mix_W1": 2 * 0.5 ** 0.5, "mix_b1": 2 * 0.5 ** 0.5,
+                   "mix_W2": 2 * 0.25, "mix_b2": 2 * 0.25}
+
+
+def _module_tree(module: torch.nn.Module, rs: np.random.RandomState) -> dict:
+    """The Flax tree of a port module whose names are the Flax ones, drawn
+    from ``rs`` in the module's registration order: an ``nn.Linear``'s
+    weight as ``kernel [in, out]`` normal over sqrt(fan in), biases
+    normal·0.1, a norm's scale 1 + normal·0.1, the pointer's output kernel
+    like a kernel, the raw parameters of `_UNIFORM_LEAVES` uniform."""
+    tree: dict = {}
+    owners = dict(module.named_modules())
+    for name, p in module.named_parameters():
+        *parents, leaf = name.split(".")
+        owner = owners[".".join(parents)]
+        shape = tuple(p.shape)
+        if isinstance(owner, torch.nn.Linear) and leaf == "weight":
+            fan_in, fan_out = shape[1], shape[0]
+            leaf, value = "kernel", rs.standard_normal((fan_in, fan_out)) / np.sqrt(fan_in)
+        elif leaf == "project_out_kernel":
+            value = rs.standard_normal(shape) / np.sqrt(shape[0])
+        elif leaf == "scale":
+            value = 1.0 + 0.1 * rs.standard_normal(shape)
+        elif leaf in ("bias", "project_out_bias"):
+            value = 0.1 * rs.standard_normal(shape)
+        elif leaf in _UNIFORM_LEAVES:
+            value = _UNIFORM_LEAVES[leaf] * rs.random_sample(shape)
+        else:
+            raise ValueError(f"no draw rule for parameter {name} of {type(module).__name__}")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.asarray(value, dtype=np.float32)
+    return tree
 
 
 def _embedding_module(kind: str, env_name: str, embed_dim: int, **kwargs) -> torch.nn.Module:
@@ -216,13 +275,13 @@ def random_params_numpy(
     critic_hidden_dim: int = 256,
     init_embedding_kwargs: dict | None = None,
     context_embedding_kwargs: dict | None = None,
+    policy_kwargs: dict | None = None,
 ) -> dict:
     """A ``params`` tree (without the outer ``"params"`` key) of ``policy``
     (``"am"``, ``"symnco"``, ``"mvmoe"`` or ``"polynet"`` on ``env_name``,
     any env of the port's registry: its init, context and dynamic
     embeddings are read from the port's modules, which carry the Flax
-    names; a JAX env not ported yet raises `NotImplementedError` with its
-    ROADMAP.md item;
+    names; an env in neither package raises `ValueError`;
     ``"multienv"`` or ``"multienv_moe"`` over ``env_names``; ``"ptrnet"``
     with ``embed_dim`` and ``hidden_dim``; ``"nargnn"`` (DeepACO's encoder)
     and ``"gfacs"`` (with its logZ head of ``z_out_dim``) with
@@ -239,7 +298,17 @@ def random_params_numpy(
     ``depot_copy_offset`` normal·0.02, PtrNet's ``v`` and
     ``decoder_input0`` uniform in [0, 0.2). The draw order is fixed (the
     golden files depend on it), an embedding's by its module's registration
-    order, a dynamic embedding's last."""
+    order, a dynamic embedding's last.
+
+    The rest of the zoo, ``"matnet"``, ``"matnet_ffsp"``, ``"mdam"``,
+    ``"ham"``, ``"l2d"`` (with its critic when ``policy_kwargs`` say
+    ``with_critic=True``) and ``"l2d_attn"``, is drawn from the port's policy
+    built with ``policy_kwargs`` (its own defaults otherwise; the other
+    arguments are not read), in its registration order (`_module_tree`):
+    the mixers' parameters uniform in [0, 2·init), the learned embeddings
+    (``no_job_emb``, ``stage_emb``, ``dummy``) in [0, 1)."""
+    if policy in _MODULE_TREES:
+        return _module_tree(_zoo_policy(policy, policy_kwargs or {}), np.random.RandomState(seed))
     multi = policy in ("multienv", "multienv_moe")
     envs = tuple(env_names) if multi else (env_name,)
     if policy not in _TREE_POLICIES:

@@ -9,8 +9,9 @@ Seeded npz validation and test sets with the reference's seed conventions
 ``--convention reference`` rebuilds the reference's canonical files (the
 committed ``data/tsp/*.npz`` and ``data/cvrp/*.npz``) byte for byte from
 numpy's stream; the default draws through the port's envs from a
-`torch.Generator` seeded with ``--seed``, on ``--device``. A problem whose
-env is not ported yet raises `NotImplementedError` with its ROADMAP.md item.
+`torch.Generator` seeded with ``--seed``, on ``--device``, for every env of
+the registry (ATSP's cost matrices, FFSP's run times, FJSP's and JSSP's
+operations among them).
 """
 
 from __future__ import annotations
@@ -104,10 +105,10 @@ def generate_default_datasets(
 
 
 def main(argv=None):
-    from rl4co_tpu_torch.envs import ENV_REGISTRY, UNPORTED_ENVS
+    from rl4co_tpu_torch.envs import ENV_REGISTRY
 
     p = argparse.ArgumentParser(description="rl4co-tpu (PyTorch port) dataset generation")
-    p.add_argument("--problem", default="tsp", choices=sorted({*ENV_REGISTRY, *UNPORTED_ENVS}))
+    p.add_argument("--problem", default="tsp", choices=sorted(ENV_REGISTRY))
     p.add_argument("--num-loc", type=int, default=50)
     p.add_argument("--dataset-size", type=int, default=10_000)
     p.add_argument("--seed", type=int, default=1234)

@@ -4,6 +4,7 @@ from rl4co_tpu_torch.envs.base import Env, Instance  # noqa: F401
 from rl4co_tpu_torch.envs.eda.dpp import DPP, MDPP
 from rl4co_tpu_torch.envs.graph.flp import FLP
 from rl4co_tpu_torch.envs.graph.mcp import MCP
+from rl4co_tpu_torch.envs.routing.atsp import ATSP
 from rl4co_tpu_torch.envs.routing.cvrp import CVRP
 from rl4co_tpu_torch.envs.routing.cvrpmvc import CVRPMVC
 from rl4co_tpu_torch.envs.routing.cvrptw import CVRPTW
@@ -17,6 +18,8 @@ from rl4co_tpu_torch.envs.routing.pdp import PDP
 from rl4co_tpu_torch.envs.routing.sdvrp import SDVRP
 from rl4co_tpu_torch.envs.routing.svrp import SVRP
 from rl4co_tpu_torch.envs.routing.tsp import TSP, DenseRewardTSP  # noqa: F401
+from rl4co_tpu_torch.envs.scheduling.ffsp import FFSP
+from rl4co_tpu_torch.envs.scheduling.fjsp import FJSP, JSSP
 from rl4co_tpu_torch.envs.scheduling.smtwtp import SMTWTP
 
 ENV_REGISTRY = {
@@ -40,22 +43,16 @@ ENV_REGISTRY = {
     "smtwtp": SMTWTP,
     "dpp": DPP,
     "mdpp": MDPP,
+    "atsp": ATSP,
+    "ffsp": FFSP,
+    "fjsp": FJSP,
+    "jssp": JSSP,
 }
-
-
-# the JAX package's envs not ported yet -> their ROADMAP.md item (ATSP needs
-# MatNet's embeddings, FFSP, FJSP and JSSP the models that drive them)
-UNPORTED_ENVS = {name: 14 for name in ("atsp", "ffsp", "fjsp", "jssp")}
 
 
 def get_env(name: str, **kwargs) -> Env:
     """Instantiate an env by registry name."""
     cls = ENV_REGISTRY.get(name)
     if cls is None:
-        item = UNPORTED_ENVS.get(name)
-        where = f"ROADMAP.md, item {item}" if item else "ROADMAP.md lists the order of the rest"
-        raise NotImplementedError(
-            f"Environment '{name}' is not ported yet (available: "
-            f"{sorted(ENV_REGISTRY)}); {where}"
-        )
+        raise ValueError(f"Unknown environment '{name}' (available: {sorted(ENV_REGISTRY)})")
     return cls(**kwargs)

@@ -58,13 +58,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     """Self-attention MHA: one ``Wqkv`` [D -> 3D] split into q, k, v in that
-    order, and ``out_proj``, both with bias."""
+    order, and ``out_proj``, both with bias unless ``use_bias=False``."""
 
-    def __init__(self, embed_dim: int, num_heads: int = 8):
+    def __init__(self, embed_dim: int, num_heads: int = 8, use_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
-        self.Wqkv = nn.Linear(embed_dim, 3 * embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.Wqkv = nn.Linear(embed_dim, 3 * embed_dim, bias=use_bias)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self.Wqkv(x).chunk(3, dim=-1)

@@ -62,6 +62,21 @@ class VRPEdgeEmbedding(TSPEdgeEmbedding):
         return torch.cat([instance["depot"][:, None, :], instance["locs"]], dim=-2)
 
 
+class ATSPEdgeEmbedding(nn.Module):
+    """The K cheapest arcs out of each node of the cost matrix (row-wise,
+    the diagonal excluded) -> edge features, one Dense (``edge_embed``)."""
+
+    def __init__(self, embed_dim: int, k_sparse: int | None = None):
+        super().__init__()
+        self.k_sparse = k_sparse
+        self.edge_embed = nn.Linear(1, embed_dim)
+
+    def forward(self, instance):
+        dm = instance["cost_matrix"]
+        nbr_idx, dist = knn_edges_from_matrix(dm, self.k_sparse or default_k_sparse(dm.shape[-1]))
+        return self.edge_embed(dist[..., None]), nbr_idx
+
+
 EDGE_EMBEDDING_REGISTRY = {
     "tsp": TSPEdgeEmbedding,
     "shpp": TSPEdgeEmbedding,
@@ -69,18 +84,11 @@ EDGE_EMBEDDING_REGISTRY = {
     "op": VRPEdgeEmbedding,
     "pctsp": VRPEdgeEmbedding,
     "spctsp": VRPEdgeEmbedding,
+    "atsp": ATSPEdgeEmbedding,
 }
-
-# envs whose edge embedding waits for the env itself -> its ROADMAP.md item
-# (ATSP's comes with MatNet, whose init embedding it needs)
-UNPORTED_EDGE_EMBEDDINGS = {"atsp": 14}
 
 
 def env_edge_embedding(env_name: str, embed_dim: int, **kwargs) -> nn.Module:
-    if env_name in UNPORTED_EDGE_EMBEDDINGS:
-        raise NotImplementedError(
-            f"the edge embedding of env '{env_name}' is not ported to rl4co_tpu_torch yet "
-            f"(ROADMAP.md, item {UNPORTED_EDGE_EMBEDDINGS[env_name]})")
     if env_name not in EDGE_EMBEDDING_REGISTRY:
         raise ValueError(f"No edge embedding for env '{env_name}'. "
                          f"Available: {sorted(EDGE_EMBEDDING_REGISTRY)}")

@@ -289,6 +289,42 @@ class MCPInitEmbedding(nn.Module):
         return xla_cpu_sum(gathered.transpose(-1, -2))                        # [B, S, D]
 
 
+class MatNetInitEmbedding(nn.Module):
+    """MatNet's initial row and column embeddings: rows start at zero;
+    column j of an instance gets a one-hot in a random slot, distinct per
+    column (``"RandomOneHot"``), or uniform noise (``"Random"``). Returns
+    ``(row_emb [B, R, D], col_emb [B, C, D], cost_matrix [B, R, C])``. No
+    parameters. The JAX package draws the slots from `jax.random`; here
+    they come from ``generator`` (its own stream) or are given as ``slots
+    [B, C]`` (``noise [B, C, D]`` for ``"Random"``), as a test passes JAX's
+    in. The MatNet policy seeds its columns deterministically instead
+    (`models/zoo/matnet.py`), as the JAX package's does."""
+
+    def __init__(self, embed_dim: int, mode: str = "RandomOneHot"):
+        super().__init__()
+        if mode not in ("RandomOneHot", "Random"):
+            raise ValueError(f"mode must be 'RandomOneHot' or 'Random', got {mode!r}")
+        self.embed_dim = embed_dim
+        self.mode = mode
+
+    def forward(self, instance, generator=None, slots=None, noise=None):
+        dmat = instance["cost_matrix"]
+        b, r, c = dmat.shape
+        d, dev = self.embed_dim, dmat.device
+        row_emb = torch.zeros((b, r, d), dtype=dmat.dtype, device=dev)
+        if self.mode == "Random":
+            if noise is None:
+                noise = torch.rand((b, c, d), generator=generator, device=dev, dtype=dmat.dtype)
+            return row_emb, noise, dmat
+        if c > d:
+            raise ValueError(f"RandomOneHot needs embed_dim >= num columns ({c})")
+        if slots is None:
+            keys = torch.rand((b, d), generator=generator, device=dev)
+            slots = torch.argsort(keys, dim=-1)[:, :c]
+        col_emb = torch.nn.functional.one_hot(slots.long().to(dev), d).to(dmat.dtype)
+        return row_emb, col_emb, dmat
+
+
 INIT_EMBEDDING_REGISTRY = {
     "tsp": TSPInitEmbedding,
     "shpp": TSPInitEmbedding,
@@ -310,6 +346,7 @@ INIT_EMBEDDING_REGISTRY = {
     "mdpp": MDPPInitEmbedding,
     "flp": FLPInitEmbedding,
     "mcp": MCPInitEmbedding,
+    "atsp": MatNetInitEmbedding,
 }
 
 

@@ -43,7 +43,17 @@ class GraphAttentionNetwork(nn.Module):
                 normalization=normalization,
             ))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for i in range(self.num_layers):
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                h_old: Optional[torch.Tensor] = None, return_hidden: bool = False):
+        """The whole stack by default. With ``h_old`` (the input of the last
+        layer) only the last layer runs, on ``h_old`` with the key mask
+        ``mask``: MDAM's Embedding-Glimpse re-encoding. ``return_hidden``
+        also returns the last layer's input, ``(x, hidden)``."""
+        last = getattr(self, f"layer_{self.num_layers - 1}")
+        if h_old is not None:
+            return last(h_old, mask)
+        for i in range(self.num_layers - 1):
             x = getattr(self, f"layer_{i}")(x, mask)
-        return x
+        hidden = x
+        x = last(x, mask)
+        return (x, hidden) if return_hidden else x

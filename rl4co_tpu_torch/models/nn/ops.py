@@ -97,3 +97,31 @@ class MLP(nn.Module):
             x = getattr(self, f"Dense_{i}")(x)
             x = self.hidden_act(x) if i < self.num_layers - 1 else self.out_act(x)
         return x
+
+
+class PositionalEncoding(nn.Module):
+    """Sinusoidal positional encoding, no parameters: ``x + pe[positions]``
+    (``positions [..., S]`` integer), or ``x + pe[:S]`` along the second to
+    last axis without them. The table is the JAX package's: f32 sines on the
+    even channels and cosines on the odd ones of ``pos * div``."""
+
+    def __init__(self, embed_dim: int, max_len: int = 1000):
+        super().__init__()
+        self.embed_dim, self.max_len = embed_dim, max_len
+
+    def table(self, device) -> torch.Tensor:
+        d = self.embed_dim
+        pos = torch.arange(self.max_len, device=device, dtype=torch.float32)[:, None]
+        log10k = torch.log(torch.tensor(10000.0, device=device))
+        div = torch.exp(torch.arange(0, d, 2, device=device, dtype=torch.float32)
+                        * (-log10k / d))
+        pe = torch.zeros((self.max_len, d), device=device)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div)
+        return pe
+
+    def forward(self, x: torch.Tensor, positions=None) -> torch.Tensor:
+        pe = self.table(x.device)
+        if positions is None:
+            return x + pe[: x.shape[-2]]
+        return x + pe[positions.long()]

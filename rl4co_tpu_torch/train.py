@@ -8,10 +8,9 @@ and model names, plus ``--device``:
         --num-loc 20 --batch-size 512 --epochs 1 --device cuda
 
 The default ``--device`` is ``cuda`` (raising without a card); ``--device cpu``
-runs on the CPU. Models whose modules are not ported yet, and the flags of
-back ends not ported yet (``--tensorboard``, ``--mlflow``, ``--dp`` above 1,
-``--distributed``), raise `NotImplementedError` naming their ROADMAP.md
-item. ``--search`` runs Active Search, EAS-Emb or EAS-Lay with the trained
+runs on the CPU. The flags of back ends not ported yet (``--tensorboard``,
+``--mlflow``, ``--dp`` above 1, ``--distributed``) raise
+`NotImplementedError` naming their ROADMAP.md item. ``--search`` runs Active Search, EAS-Emb or EAS-Lay with the trained
 policy on ``--search-size`` generated instances after training and prints
 the JAX command line's JSON line ``{"search": ..., "best_reward": ...}``.
 ``dact``, ``n2s`` and ``neuopt`` ignore ``--env`` and train on their own
@@ -24,7 +23,12 @@ env, the second its own moving average); ``am-multienv`` builds its policy at
 AM's published widths whatever else is asked; a multi-env run validates on its
 first env only; PtrNet computes in f32 under ``bf16-mixed``; ``deepaco`` and
 ``gfacs`` ignore ``--baseline``, ``--precision`` (they train in f32) and the
-policy's arguments, and build their published defaults.
+policy's arguments, and build their published defaults; ``mdam`` ignores
+``--baseline`` (its per-path means are built in) and trains in f32;
+``ham`` turns any env but PDP, mPDP and MDCPDP into PDP, ``matnet`` any env
+but ATSP into ATSP (both with ``--num-loc``); ``l2d``, ``l2d-attn`` and
+``l2d-ppo`` turn a routing env into FJSP (JSSP for ``l2d-attn``) at the env's
+defaults, and ignore ``--baseline`` and ``--precision``.
 """
 
 from __future__ import annotations
@@ -73,11 +77,6 @@ MODEL_NAMES = (
     "l2d", "l2d-attn", "l2d-ppo", "dact", "n2s", "neuopt", "am-multienv",
 )
 
-# the names whose modules are not ported yet -> their ROADMAP.md item
-UNPORTED_MODELS = {
-    "mdam": 14, "ham": 14, "matnet": 14, "l2d": 14, "l2d-attn": 14, "l2d-ppo": 14,
-}
-
 
 def not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to rl4co_tpu_torch yet "
@@ -88,8 +87,6 @@ def build(spec: WorkloadSpec, logger=None):
     """(algorithm, trainer) of ``spec``. The policy's weights are drawn after
     ``torch.manual_seed(spec.seed)``, so the same spec builds the same
     untrained policy."""
-    if spec.model in UNPORTED_MODELS:
-        raise not_ported(f"model {spec.model!r}", UNPORTED_MODELS[spec.model])
     if spec.model not in MODEL_NAMES:
         raise ValueError(f"Unknown model {spec.model}. Available: {MODEL_NAMES}")
     # am-multienv takes a comma env list and builds its own env dict
@@ -163,6 +160,37 @@ def _build_model(spec: WorkloadSpec, env, pkw: dict, train_spec: DecodeSpec):
 
         ctor = MVMoE_POMO if name == "mvmoe-pomo" else MVMoE_AM
         return ctor(env, policy_kwargs=pkw, train_spec=train_spec, lr=lr)
+    if name == "mdam":  # MDAM sets its own baseline whatever --baseline says
+        from rl4co_tpu_torch.models.zoo.mdam import MDAM, MDAMPolicy
+
+        return MDAM(env, MDAMPolicy(env_name=env.name, **pkw), baseline=spec.baseline,
+                    train_spec=train_spec, lr=lr)
+    if name == "ham":  # a PDP method: any other env becomes PDP
+        from rl4co_tpu_torch.models.zoo.ham import HeterogeneousAttentionModel
+
+        if env.name not in ("pdp", "mpdp", "mdcpdp"):
+            env = get_env("pdp", **dict(spec.env_kwargs))
+        return HeterogeneousAttentionModel(env, policy_kwargs=pkw, train_spec=train_spec,
+                                           lr=lr)
+    if name == "matnet":  # an ATSP method
+        from rl4co_tpu_torch.models.zoo.matnet import MatNet
+
+        if env.name != "atsp":
+            env = get_env("atsp", **dict(spec.env_kwargs))
+        return MatNet(env, policy_kwargs=pkw, train_spec=train_spec, lr=lr)
+    if name in ("l2d", "l2d-attn", "l2d-ppo"):
+        from rl4co_tpu_torch.models.zoo.l2d import (L2DAttnModel, L2DAttnPolicy, L2DModel,
+                                                    L2DPolicy)
+
+        if env.name not in ("fjsp", "jssp"):  # the env's defaults, as the JAX CLI
+            env = get_env("jssp" if name == "l2d-attn" else "fjsp")
+        if name == "l2d":
+            return L2DModel(env, L2DPolicy(**pkw), lr=lr)
+        if name == "l2d-attn":
+            return L2DAttnModel(env, L2DAttnPolicy(**pkw), lr=lr)
+        from rl4co_tpu_torch.rl.stepwise_ppo import StepwisePPO
+
+        return StepwisePPO(env, L2DPolicy(**{"with_critic": True, **pkw}), lr=lr)
     if name in ("dact", "n2s", "neuopt"):
         # the improvement trio on their own MDPs (they ignore --env), n-step PPO
         from rl4co_tpu_torch.models.zoo.dact import DACT

@@ -278,6 +278,8 @@ def _num_loc(name, inst):
     `SMALL_ENVS`, which `env_pair` builds at its small size."""
     if name in SMALL_ENVS:
         return None
+    if "cost_matrix" in inst:   # ATSP
+        return inst["cost_matrix"].shape[1]
     n = inst["locs"].shape[1]
     return n - 1 if name == "mtvrp" else n
 
@@ -436,3 +438,52 @@ def _jax_state_class(jenv):
     from rl4co_tpu.envs.routing.tsp_kopt import TSPkoptState
 
     return PDPRRState if jenv.name == "pdp_ruin_repair" else TSPkoptState
+
+
+# ---- the rest of the zoo (MatNet, MatNet-FFSP, MDAM, HAM, L2D) ----
+
+def zoo_tree_pair(tree_name, jax_cls, torch_cls, seed=0, **kwargs):
+    """The same seeded weights (`random_params_numpy(policy=tree_name,
+    policy_kwargs=kwargs)`) as (JAX module, its params, the port's module on
+    the CPU); the tree has the JAX module's structure."""
+    tree = random_params_numpy(seed, policy=tree_name, policy_kwargs=kwargs)
+    return jax_cls(**kwargs), tree_to_jax(tree), load_params(torch_cls(device="cpu", **kwargs),
+                                                             tree)
+
+
+def assert_gradients_close(tpolicy, jgrads, gauge=1e-4, floor=1e-3):
+    """Every parameter's gradient within ``gauge`` of the largest JAX
+    gradient, and the largest above ``floor`` (a vanishing loss would make
+    the check vacuous)."""
+    from rl4co_tpu_torch.convert import convert_params
+
+    want = {k: v.numpy() for k, v in convert_params(tree_to_numpy(jgrads)).items()}
+    got = {k: p.grad for k, p in tpolicy.named_parameters()}
+    assert set(got) == set(want), set(got) ^ set(want)
+    largest = max(np.abs(w).max() for w in want.values())
+    assert largest > floor, largest
+    for name, g in got.items():
+        assert g is not None, name
+        err = np.abs(g.numpy() - want[name]).max()
+        assert err <= gauge * largest, (name, err, largest)
+
+
+def assert_loss_close(got, want, terms_scale, rtol=1e-5):
+    """A REINFORCE-type loss within ``rtol`` of its terms' scale (the mean of
+    |advantage · log-likelihood|): the loss is a mean of terms of both signs
+    that cancel, so its own size says nothing of the noise in it."""
+    assert terms_scale > 0
+    assert abs(float(got) - float(want)) <= rtol * terms_scale, (float(got), float(want),
+                                                                 terms_scale)
+
+
+def reinforce_terms_scale(reward, ll, group_axis_size=None):
+    """mean |(reward - its mean) · ll| over rows (numpy), the mean taken over
+    the batch, or per group of ``group_axis_size`` repeat-major rows."""
+    reward, ll = np.asarray(reward, np.float64), np.asarray(ll, np.float64)
+    if group_axis_size:
+        r = reward.reshape(group_axis_size, -1)
+        adv = (r - r.mean(0, keepdims=True)).reshape(-1)
+    else:
+        adv = reward - reward.mean(0, keepdims=True)
+    return float(np.abs(adv * ll).mean())

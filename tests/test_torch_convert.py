@@ -125,13 +125,16 @@ def test_stacked_expert_kernels_and_gates_keep_their_layout():
         convert_params({"moe": {"experts": {"Dense_0": {"kernel": np.zeros((1, 2, 3, 4))}}}})
 
 
-@pytest.mark.parametrize("env_name", sorted(__import__("rl4co_tpu_torch.envs",
-                                                       fromlist=["ENV_REGISTRY"]).ENV_REGISTRY))
+@pytest.mark.parametrize("env_name", sorted(__import__(
+    "rl4co_tpu_torch.models.nn.env_embeddings.context",
+    fromlist=["CONTEXT_EMBEDDING_REGISTRY"]).CONTEXT_EMBEDDING_REGISTRY))
 def test_every_ported_env_gets_the_tree_of_its_flax_policy(env_name):
-    """The init, context and dynamic embeddings of each env of the port's
-    registry, read from the port's modules, give the paths and shapes of the
-    JAX package's freshly initialised AM tree, and the port's policy takes
-    the tree with no leaf left over and no parameter unset."""
+    """The init, context and dynamic embeddings of each env AM drives (those
+    with a context embedding: ATSP, FFSP, FJSP and JSSP have their own
+    policies, `test_the_envs_of_the_rest_of_the_zoo_have_trees`), read from
+    the port's modules, give the paths and shapes of the JAX package's
+    freshly initialised AM tree, and the port's policy takes the tree with
+    no leaf left over and no parameter unset."""
     jenv = env_pair(env_name, 8)[1]
     want = tree_to_numpy(init_policy_params(JaxPolicy(env_name=env_name, **SMALL), jenv,
                                             jax.random.PRNGKey(0)))["params"]
@@ -142,11 +145,21 @@ def test_every_ported_env_gets_the_tree_of_its_flax_policy(env_name):
     load_params(AttentionModelPolicy(env_name=env_name, device="cpu", **SMALL), got)
 
 
-@pytest.mark.parametrize("env_name,item", [("atsp", 14), ("ffsp", 14), ("fjsp", 14)])
-def test_an_env_not_ported_raises_with_its_roadmap_item(env_name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
-        random_params_numpy(0, env_name=env_name)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
-        random_params_numpy(0, policy="multienv", env_names=("op", env_name))
+@pytest.mark.parametrize("env_name,tree,cls", [
+    ("atsp", "matnet", "rl4co_tpu_torch.models.zoo.matnet:MatNetPolicy"),
+    ("ffsp", "matnet_ffsp", "rl4co_tpu_torch.models.zoo.matnet_ffsp:MatNetFFSPPolicy"),
+    ("fjsp", "l2d", "rl4co_tpu_torch.models.zoo.l2d:L2DPolicy")])
+def test_the_envs_of_the_rest_of_the_zoo_have_trees(env_name, tree, cls):
+    """ATSP, FFSP and FJSP take no AM tree: their policies' trees are drawn
+    from the port's modules, the same for the same seed; an unknown env
+    still raises."""
+    import importlib
+
+    module, name = cls.split(":")
+    kw = dict(embed_dim=16, num_encoder_layers=1)
+    first = random_params_numpy(0, policy=tree, policy_kwargs=kw)
+    again = random_params_numpy(0, policy=tree, policy_kwargs=kw)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(np.array_equal, first, again))
+    load_params(getattr(importlib.import_module(module), name)(device="cpu", **kw), first)
     with pytest.raises(ValueError, match="no env"):
         random_params_numpy(0, env_name="not-an-env")

@@ -250,12 +250,16 @@ def test_native_generation_draws_through_the_port(tmp_path):
         assert f["locs"].shape == (3, 6, 2) and f["depot"].shape == (3, 2)
 
 
-@pytest.mark.parametrize("problem,item", [("atsp", "14"), ("ffsp", "14")])
-def test_unported_problems_raise_with_their_item(problem, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tgen.generate_dataset(problem, 10, 2, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tgen.generate_default_datasets("unused", problems=(problem,), sizes=(10,),
-                                       dataset_size=2, device="cpu")
+@pytest.mark.parametrize("problem", ["atsp", "ffsp"])
+def test_atsp_and_ffsp_datasets_generate(problem, tmp_path):
+    data = tgen.generate_dataset(problem, 10, 2, 0, device="cpu")
+    if problem == "atsp":
+        assert data["cost_matrix"].shape == (2, 10, 10)
+    else:   # FFSP takes no num_loc: its defaults, 4 jobs on 2 x 3 machines
+        assert data["run_time"].shape == (2, 4, 6)
+    written = tgen.generate_default_datasets(str(tmp_path), problems=(problem,), sizes=(10,),
+                                             dataset_size=2, device="cpu")
+    assert len(written) == 2 and all(os.path.exists(p) for p in written)
+    # the reference's numpy stream is not mirrored for either, as in the JAX package
     with pytest.raises(NotImplementedError, match="not mirrored"):
         tgen.generate_reference_convention(problem, 10, 2, 0)

@@ -71,8 +71,10 @@ def test_registry_and_the_static_embedding():
     assert isinstance(env_dynamic_embedding("cvrp", 16), StaticEmbedding)
     assert isinstance(env_dynamic_embedding("sdvrp", 16), SDVRPDynamicEmbedding)
     assert list(StaticEmbedding(16).parameters()) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 14"):
-        JSSPDynamicEmbedding(16)
+    # L2D's scheduling deltas read the encoder's machine embeddings: the L2D
+    # policy holds them, the routing registry does not
+    assert [n for n, _ in JSSPDynamicEmbedding(16).named_parameters()] == [
+        "project_node_step.weight", "project_edge_step.weight"]
 
 
 def test_sdvrp_dynamic_embedding_matches_jax():

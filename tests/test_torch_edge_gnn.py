@@ -99,20 +99,18 @@ def test_edge_embedding_matches_jax(env_name):
 
 
 @pytest.mark.parametrize("env_name", ["atsp", "shpp"])
-def test_unported_edge_embeddings_raise_with_their_item(env_name):
-    # ATSP's waits for MatNet (item 14); SHPP's came with its env (item 10)
-    # and is TSP's, as in the JAX registry
+def test_atsp_and_shpp_edge_embeddings_are_the_jax_registry_s(env_name):
+    # ATSP's came with MatNet, SHPP's with its env, and is TSP's, as in the
+    # JAX registry
     assert env_name in jedge.EDGE_EMBEDDING_REGISTRY
-    if env_name == "atsp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, item 14"):
-            edge.env_edge_embedding(env_name, 16)
-    else:
-        assert type(edge.env_edge_embedding(env_name, 16)) is edge.TSPEdgeEmbedding
+    mod = edge.env_edge_embedding(env_name, 16)
+    assert type(mod).__name__ == jedge.EDGE_EMBEDDING_REGISTRY[env_name].__name__
+    if env_name == "shpp":
+        assert type(mod) is edge.TSPEdgeEmbedding
 
 
 def test_registry_covers_the_ported_envs():
-    assert set(edge.EDGE_EMBEDDING_REGISTRY) | set(edge.UNPORTED_EDGE_EMBEDDINGS) == set(
-        jedge.EDGE_EMBEDDING_REGISTRY)
+    assert set(edge.EDGE_EMBEDDING_REGISTRY) == set(jedge.EDGE_EMBEDDING_REGISTRY)
     for name, cls in edge.EDGE_EMBEDDING_REGISTRY.items():
         assert cls.__name__ == jedge.EDGE_EMBEDDING_REGISTRY[name].__name__
 

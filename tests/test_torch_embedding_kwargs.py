@@ -18,7 +18,7 @@ import torch
 from rl4co_tpu.models.nn.env_embeddings import context as jctx, init as jinit
 from rl4co_tpu.models.policies.constructive import init_policy_params
 from rl4co_tpu_torch.convert import convert_params, load_params, random_params_numpy
-from rl4co_tpu_torch.envs import ENV_REGISTRY
+from rl4co_tpu_torch.models.nn.env_embeddings.context import CONTEXT_EMBEDDING_REGISTRY
 from rl4co_tpu_torch.models import AttentionModelPolicy
 from rl4co_tpu_torch.models.nn.env_embeddings import env_context_embedding, env_init_embedding
 
@@ -38,7 +38,9 @@ from _torch_port import (
 
 torch.set_num_threads(1)
 
-BIASED = sorted(set(ENV_REGISTRY) - {"tsp", "shpp", "flp", "mcp"})
+# the envs AM drives (those with a context embedding; ATSP, FFSP, FJSP and
+# JSSP have their own policies)
+BIASED = sorted(set(CONTEXT_EMBEDDING_REGISTRY) - {"tsp", "shpp", "flp", "mcp"})
 NO_BIAS = {"use_bias": False}
 
 

@@ -68,17 +68,17 @@ def test_check_solution_validity_accepts_and_refuses():
         env.check_solution_validity({}, np.array([3, 1, 4, 0, 3]))
 
 
-def test_registry_holds_tsp_only_and_names_the_roadmap():
-    # the ported envs (TSP; CVRP since the POMO slice; OP, PCTSP and SPCTSP
-    # since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP and MTVRP
-    # since the multi-task VRP slice; CVRPMVC, SVRP, mPDP and MDCPDP since
-    # the GLOP slice; SMTWTP, DPP, MDPP, FLP and MCP since the PPO slice; the
-    # name dates from when TSP was the only one); the rest raise
-    assert sorted(ENV_REGISTRY) == ["cvrp", "cvrpmvc", "cvrptw", "dpp", "flp", "mcp",
-                                    "mdcpdp", "mdpp", "mpdp", "mtsp", "mtvrp", "op", "pctsp",
-                                    "pdp", "sdvrp", "shpp", "smtwtp", "spctsp", "svrp", "tsp"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_env("atsp", num_loc=10)
+def test_registry_holds_the_jax_registry():
+    # every env of the JAX package's registry since the zoo's slice (ATSP,
+    # FFSP, FJSP, JSSP last); an unknown name raises
+    from rl4co_tpu.envs import ENV_REGISTRY as JAX_ENV_REGISTRY
+
+    assert sorted(ENV_REGISTRY) == sorted(JAX_ENV_REGISTRY)
+    assert len(ENV_REGISTRY) == 24
+    for name, cls in ENV_REGISTRY.items():
+        assert cls.__name__ == JAX_ENV_REGISTRY[name].__name__, name
+    with pytest.raises(ValueError, match="Unknown environment"):
+        get_env("not-an-env", num_loc=10)
 
 
 def test_generate_is_seeded_and_in_range():

@@ -189,11 +189,13 @@ def test_embedding_registries_hold_tsp_only():
     # and SPCTSP since the mixed-env slice; CVRPTW, SDVRP, PDP, mTSP, SHPP
     # and MTVRP since the multi-task VRP slice; CVRPMVC, SVRP, mPDP and MDCPDP
     # since the GLOP slice; SMTWTP, DPP, MDPP, FLP and MCP since the PPO
-    # slice; the name dates from when TSP was the only one); the rest raise
+    # slice; ATSP's MatNet init embedding since the zoo's slice, as in the JAX
+    # registry, whose ATSP has no context embedding; the name dates from when
+    # TSP was the only one); the rest raise
     ported = ["cvrp", "cvrpmvc", "cvrptw", "dpp", "flp", "mcp", "mdcpdp", "mdpp", "mpdp",
               "mtsp", "mtvrp", "op", "pctsp", "pdp", "sdvrp", "shpp", "smtwtp", "spctsp",
               "svrp", "tsp"]
-    assert sorted(INIT_EMBEDDING_REGISTRY) == ported
+    assert sorted(INIT_EMBEDDING_REGISTRY) == sorted(ported + ["atsp"])
     assert sorted(CONTEXT_EMBEDDING_REGISTRY) == ported
     with pytest.raises(NotImplementedError):
         env_context_embedding("atsp", D)

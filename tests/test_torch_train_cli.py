@@ -1,8 +1,7 @@
 """The port's training command line against the JAX package's
 (`rl4co_tpu/train.py`, `tests/test_train_cli.py`): the same model names,
-every ported name built and trained for one epoch at the JAX smoke test's
-sizes, every name and flag whose module is not ported refused with its
-ROADMAP.md item, the JSONL log's records against the JAX command line's, a
+every name built and trained for one epoch at the JAX smoke test's sizes,
+every flag whose back end is not ported refused with its ROADMAP.md item, the JSONL log's records against the JAX command line's, a
 resumed run, and the mixed OP + PCTSP configuration end to end."""
 
 import json
@@ -13,21 +12,21 @@ import torch
 
 from rl4co_tpu.train import MODEL_NAMES as JAX_MODEL_NAMES
 from rl4co_tpu.train import main as jax_main
-from rl4co_tpu_torch.train import MODEL_NAMES, UNPORTED_MODELS, WorkloadSpec, build, main
+from rl4co_tpu_torch.train import MODEL_NAMES, WorkloadSpec, build, main
 from test_train_cli import SMOKE_OVERRIDES
 
 torch.set_num_threads(1)
 
-PORTED = sorted(set(MODEL_NAMES) - set(UNPORTED_MODELS))
+PORTED = sorted(MODEL_NAMES)
 TINY = ["--num-loc", "6", "--batch-size", "4", "--train-size", "8", "--val-size", "4",
         "--epochs", "1", "--device", "cpu"]
 
 
 def test_model_names_equal_the_jax_tuple():
     assert MODEL_NAMES == JAX_MODEL_NAMES
-    assert PORTED == ["a2c", "am", "am-multienv", "am-xl", "dact", "deepaco", "gfacs", "mvmoe",
-                      "mvmoe-pomo", "n2s", "neuopt", "polynet", "pomo", "ppo", "ptrnet",
-                      "symnco"]
+    assert PORTED == ["a2c", "am", "am-multienv", "am-xl", "dact", "deepaco", "gfacs", "ham",
+                      "l2d", "l2d-attn", "l2d-ppo", "matnet", "mdam", "mvmoe", "mvmoe-pomo",
+                      "n2s", "neuopt", "polynet", "pomo", "ppo", "ptrnet", "symnco"]
 
 
 def tiny_spec(model, **kw):
@@ -55,15 +54,6 @@ def test_build_seeds_the_policy():
     spec = tiny_spec("am", policy_kwargs=(("embed_dim", 16), ("num_encoder_layers", 1)))
     first, second = build(spec)[0].policy, build(spec)[0].policy
     assert all(torch.equal(p, q) for p, q in zip(first.parameters(), second.parameters()))
-
-
-@pytest.mark.parametrize("model", sorted(UNPORTED_MODELS))
-def test_unported_models_raise_with_their_roadmap_item(model):
-    item = UNPORTED_MODELS[model]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
-        main(["--model", model, *TINY])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
-        build(tiny_spec(model))
 
 
 @pytest.mark.parametrize("flags,item", [
