@@ -50,7 +50,12 @@ and its gradients on JAX's sampled actions, the train command line), MDAM's
 five paths on TSP-50 and HAM on PDP-50 through the single-query kernel (held
 likewise, MDAM with Embedding-Glimpse and its KL loss), MatNet on FFSP20 and
 L2D on FJSP and JSSP (makespans equal to the JAX package's) with one JAX
-stepwise-PPO step replayed and `--model l2d-ppo` trained. Every phase prints one
+stepwise-PPO step replayed and `--model l2d-ppo` trained. Last the
+infrastructure: AM trained on TSP-50 through the train CLI by two `--distributed`
+ranks on the one card (gloo), held to the one-process run of the same command,
+with TensorBoard, MLflow and a profile; Reptile over POMO on TSP-20/50/100
+through the grouped kernel at L = N, every outer update recomputed; and remat
+and the fused rollout baseline on the AM checkpoint. Every phase prints one
 JSON line; any failure is a traceback and a non-zero exit. Without a card it
 exits non-zero and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
 script, while a kernel is being worked on.
@@ -216,6 +221,12 @@ CASES = [
     (1024, None, 50, 256, 16, 0.7),
     (256, None, 50, 128, 8, 0.7),
     (8, None, 50, 128, 8, 0.7),
+    # infrastructure: Reptile's POMO tasks on TSP-20 and TSP-100 (64 instances,
+    # N starts as queries; TSP-50's (64, 50, 50) is above); the data-parallel
+    # rank's rollouts (256, None, 50) and remat's (512, None, 50) are above
+    (64, 20, 20, 128, 8, 0.7),
+    (64, 100, 100, 128, 8, 0.7),
+    (64, 100, 100, 128, 8, "one_column"),
 ]
 # further timed shapes, each beside its bound: (kernel, (B, L, N, D, H))
 EXTRA_TIMES = [
@@ -244,7 +255,10 @@ EXTRA_TIMES = [
     ("pointer_step_grouped", (256, 50, 50, 256, 16)),    # MatNet's multistart on ATSP-50
     ("pointer_step_grouped", (64, 50, 50, 256, 16)),     # ... a MatNet train step
     ("pointer_step_single", (1024, None, 50, 256, 16)),  # K2 at MatNet's width
-    ("pointer_step_single", (256, None, 50, 128, 8)),    # MDAM with Embedding-Glimpse
+    ("pointer_step_single", (256, None, 50, 128, 8)),    # MDAM with Embedding-Glimpse; a dp rank
+    ("pointer_step_grouped", (64, 20, 20, 128, 8)),      # Reptile's POMO on TSP-20
+    ("pointer_step_grouped", (64, 50, 50, 128, 8)),      # ... on TSP-50
+    ("pointer_step_grouped", (64, 100, 100, 128, 8)),    # ... on TSP-100
 ]
 
 
@@ -2453,7 +2467,7 @@ def train_cli(device, tmp, model, name, num_loc, argv_tail, steps, instrumented,
     log = os.path.join(tmp, f"{model}-{name}.jsonl")
     argv = ["--model", model, "--env", name, "--num-loc", str(num_loc), *argv_tail,
             "--epochs", "1", "--ckpt-dir", os.path.join(tmp, f"{model}-{name}"),
-            "--log-file", log, "--device", str(device)]
+            "--log-file", log, "--dp", "1", "--device", str(device)]
     done, undo = instrument_updates(instrumented)
     t0 = time.perf_counter()
     try:
@@ -2677,12 +2691,13 @@ UPDATE_NOISE_SHARE = 1e-5
 # PPO through the train CLI at its defaults on TSP-20: the greedy cost on the
 # trainer's validation set must fall by PPO_LEARN_MARGIN over PPO_CLI_STEPS
 # steps (on the CPU the port's fell 6.03 -> 4.20 in 60 steps; on the card 6.03 -> 4.12 in 60,
-# the sampled cost 8.73 -> 4.83 by step 40: cut to 40 steps to keep the script inside its 1 200
-# s on a slow host). TSP-50 does not learn in the phase's time: the
+# the sampled cost 8.73 -> 4.83 by step 40, the greedy cost 6.029 -> 4.400 in 40: cut to 40
+# steps to keep the script inside its 1 200 s on a slow host, then to 30 when the
+# infrastructure phases came). TSP-50 does not learn in the phase's time: the
 # critic starts near 0 against rewards near -21, so every advantage is
 # negative and the first steps push the sampled tours down (on the CPU the
 # greedy cost rose 13.85 -> 18.30 in 40 steps); TSP-50 runs in the replay.
-PPO_CLI_LOC, PPO_CLI_STEPS, PPO_LEARN_MARGIN = 20, 40, 1.0
+PPO_CLI_LOC, PPO_CLI_STEPS, PPO_LEARN_MARGIN = 20, 30, 1.0
 A2C_CLI_STEPS = 4
 # SMTWTP, DPP, MDPP, FLP and MCP at their published sizes:
 # `python tests/test_torch_env_smtwtp_dpp_flp_mcp.py` writes the golden files
@@ -3242,7 +3257,7 @@ TRIO_MODELS = {"dact": ("rl4co_tpu_torch.models.zoo.dact", "DACT"),
 # H100 80GB HBM3 at 700.00 W, host-bound, and each validation 1 000 moves (12-24 s); the full
 # depth would take the script past 1 100 s of its 1 200
 TRIO_CLI_STEPS = {"dact": 1, "n2s": 1, "neuopt": 1}
-TRIO_EVAL_T = 200
+TRIO_EVAL_T = 100   # 200 before the infrastructure phases came
 
 
 def trio_algo(name, device, tree=None):
@@ -4010,6 +4025,412 @@ def drive_l2d_fjsp_jssp(device, tmp, count=None, cli_batch=64, cli_steps=4):
             "launches": launches}, launches
 
 
+# ------------------------------------------------- infrastructure: dp, Reptile, remat
+
+DP_WORLD = 2
+# The ranks replay the one-process run's tours (``kind="evaluate"``) and its
+# random stream, so that the comparison holds the data-parallel arithmetic
+# and not the sampler: each rank's batch norm sums its rows before the
+# all-reduce, so the logits differ from the one-process run's in their last
+# bits, and a near-uniform policy's draw at an edge of its CDF would send a
+# tour elsewhere (a logit change of 1e-5 flips it), from where the runs part.
+# With the tours replayed, every step's loss and mean reward lie within
+# DP_SAME_RTOL of the one-process run's, and the parameters after every step
+# have DP_CLOSE_SHARE of their elements within 1e-6 and all within
+# DP_PARAM_ATOL (Adam turns the rounding noise of gradients that vanish,
+# biases before a norm, into steps of +-lr; the JAX package's
+# `tests/test_sharding.py` holds its dp parameters at 1e-3 for it).
+DP_SAME_RTOL = 1e-5
+DP_CLOSE_SHARE = 0.98
+DP_PARAM_ATOL = 1e-3
+REMAT_GRAD_GAUGE = 1e-6  # remat's gradients, of the largest
+REPTILE_TASKS = ({"num_loc": 20}, {"num_loc": 50}, {"num_loc": 100})
+# seed 0 draws 50 (the meta-weights' first policy), then 50, 20, 50, 100: the
+# fourth epoch is the first at N 100
+REPTILE_EPOCHS, REPTILE_STEPS, REPTILE_BATCH = 4, 3, 64
+# Python run in each data-parallel rank before `dp_run` (a CPU rehearsal puts
+# its stubs here)
+DP_CHILD_PRELUDE = ""
+
+
+def dp_argv(tmp, name, batch=512, steps=4, val=256):
+    """AM at its published widths on TSP-50 through the train CLI, f32, one
+    epoch of ``steps`` steps at the global ``batch``, with TensorBoard, MLflow
+    and a profile of one step, into ``tmp/name``."""
+    out = os.path.join(tmp, name)
+    return ["--model", "am", "--env", "tsp", "--num-loc", "50", "--batch-size", str(batch),
+            "--train-size", str(steps * batch), "--val-size", str(val), "--epochs", "1",
+            "--precision", "f32", "--ckpt-dir", os.path.join(out, "ckpt"),
+            "--log-file", os.path.join(out, "log.jsonl"),
+            "--tensorboard", os.path.join(out, "tb"), "--mlflow", os.path.join(out, "mlruns"),
+            "--profile-dir", os.path.join(out, "profile"), "--profile-steps", "1"]
+
+
+def dp_run(argv, out_json, replay=None):
+    """The train CLI in this process with every train step timed and its
+    launches counted; writes the steps, the launches, the final parameters,
+    the tours and the generator's state after each step (``<out_json>.pt``).
+    The one-process reference of `drive_dp_am_tsp50` (``replay`` None), or a
+    rank of it that replays, from the reference's ``.pt`` file ``replay``,
+    its rows of each step's tours and the reference's random stream after
+    each step."""
+    from rl4co_tpu_torch import train
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.parallel.mesh import active_shard
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    reference = None if replay is None else torch.load(replay)
+    done, undo = instrument_updates(REINFORCE)
+    tours, snapshots, streams = [], [], []
+    inner_rollout, inner_update = REINFORCE.train_rollout, REINFORCE.update
+
+    def train_rollout(self, *args, **kwargs):
+        out = inner_rollout(self, *args, **kwargs)
+        tours.append(out.actions.cpu())
+        return out
+
+    def update(self, instances):   # the replay and the records outside the timed step
+        i, actions = len(snapshots), None
+        if reference is not None:
+            shard = active_shard()
+            lo = shard.mesh.rank * shard.local_batch
+            actions = reference["tours"][i][lo:lo + shard.local_batch].to(self.device)
+        metrics = inner_update(self, instances, actions)
+        if reference is not None:
+            self.generator.set_state(reference["streams"][i])
+        streams.append(self.generator.get_state())
+        snapshots.append({k: p.detach().cpu().clone() for k, p in self.policy.named_parameters()})
+        return metrics
+
+    REINFORCE.train_rollout, REINFORCE.update = train_rollout, update
+    t0 = time.perf_counter()
+    try:
+        reset_launches()
+        algo = train.main(argv)
+        launches = dict(LAUNCHES)
+    finally:
+        REINFORCE.train_rollout, REINFORCE.update = inner_rollout, inner_update
+        undo()
+    torch.save({"params": snapshots, "tours": tours, "streams": streams}, out_json + ".pt")
+    with open(out_json, "w") as f:
+        json.dump({"steps": [{k: s[k] for k in ("ms", "loss", "metrics", "launches")}
+                             for s in done],
+                   "launches": launches, "cli_seconds": time.perf_counter() - t0,
+                   "device": str(algo.device)}, f)
+
+
+def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
+    """Data-parallel AM training through the train CLI: ``--distributed``
+    ranks on the one card (gloo), each running its ``batch / 2`` rows of the
+    global batch, against the one-process run of the same command, whose
+    tours and random stream the ranks replay. Each step's global loss and
+    mean reward, and the parameters after each step, against the one-process
+    run; both ranks' parameters equal to the bit; K2 launched in every step
+    of both ranks (the replayed rollout and the baseline's greedy one); the
+    TensorBoard and MLflow files of rank 0 and the busy share of the
+    profiled steps."""
+    import socket
+
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    one_argv = [*dp_argv(tmp, "one", batch, steps), "--dp", "1", "--device", str(device)]
+    dp_run(one_argv, os.path.join(tmp, "one.json"))
+    one = json.load(open(os.path.join(tmp, "one.json")))
+    one_saved = torch.load(os.path.join(tmp, "one.json.pt"))
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    flag = ["--device", "cpu" if device.type == "cpu" else "cuda"]
+    argv = [*dp_argv(tmp, "dp", batch, steps), *flag]
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(DP_WORLD):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": str(DP_WORLD), "LOCAL_WORLD_SIZE": str(DP_WORLD),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        code = "; ".join(filter(None, [
+            f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke", DP_CHILD_PRELUDE,
+            f"chip_smoke.dp_run({[*argv, '--distributed']!r}, "
+            f"{os.path.join(tmp, f'rank{rank}.json')!r}, "
+            f"{os.path.join(tmp, 'one.json.pt')!r})"]))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outputs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outputs):
+        assert p.returncode == 0, out[-4000:]
+    dp_seconds = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(DP_WORLD)]
+    saved = [torch.load(os.path.join(tmp, f"rank{r}.json.pt")) for r in range(DP_WORLD)]
+    params = [x["params"][-1] for x in saved]
+    # the replay: each step's tours, the ranks' rows in rank order, are the one-process run's
+    for i in range(steps):
+        assert torch.equal(torch.cat([x["tours"][i] for x in saved]), one_saved["tours"][i]), i
+
+    per_step = {"pointer_step_single": 100, "pointer_step_grouped": 0}
+    for r in ranks + [one]:
+        assert len(r["steps"]) == steps and all(s["launches"] == per_step for s in r["steps"]), (
+            [s["launches"] for s in r["steps"]])
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(ranks[0]["steps"], one["steps"])]
+    reward_rel = [abs(a["metrics"]["reward"] - b["metrics"]["reward"]) / abs(b["metrics"]["reward"])
+                  for a, b in zip(ranks[0]["steps"], one["steps"])]
+    for r in ranks[1:]:
+        assert [s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
+
+    def deviation(got, want):
+        dev = [(got[k] - want[k]).abs() for k in want]
+        return (max(d.max().item() for d in dev),
+                sum((d <= 1e-6).sum().item() for d in dev) / sum(d.numel() for d in dev))
+
+    same = [deviation(saved[0]["params"][i], one_saved["params"][i]) for i in range(steps)]
+    emit({"phase": "dp_am_tsp50_readings", "loss_rel_err": loss_rel,
+          "reward_rel_err": reward_rel,
+          "param_max_abs_dev_and_share_within_1e-6_per_step": same})
+    for i in range(steps):
+        assert loss_rel[i] <= DP_SAME_RTOL and reward_rel[i] <= DP_SAME_RTOL, (
+            i, loss_rel, reward_rel)
+        assert same[i][0] <= DP_PARAM_ATOL and same[i][1] >= DP_CLOSE_SHARE, (i, same)
+    for k in params[0]:
+        assert torch.equal(params[0][k], params[1][k]), f"ranks differ in {k}"
+
+    def profiled(argv, run):
+        """The trainer's profile record: device busy over the profiled wall,
+        and per step over the median unprofiled step."""
+        records = read_jsonl(argv[argv.index("--log-file") + 1])
+        rec = [r for r in records if "profile/wall_ms" in r][0]
+        median = statistics.median(s["ms"] for s in run["steps"])
+        return {"steps": rec["profile/steps"], "wall_ms": rec["profile/wall_ms"],
+                "device_busy_ms": rec["profile/device_busy_ms"],
+                "busy_share_under_profiler": rec["profile/device_busy_ms"] / rec["profile/wall_ms"],
+                "busy_share_of_median_step":
+                    rec["profile/device_busy_ms"] / rec["profile/steps"] / median}
+
+    logs = {}
+    for name, a, run in (("dp", argv, ranks[0]), ("one", one_argv, one)):
+        acc = EventAccumulator(a[a.index("--tensorboard") + 1])
+        acc.Reload()
+        loss_steps = [s.step for s in acc.Scalars("loss")]
+        (mlflow_run,) = [d for d in os.scandir(os.path.join(a[a.index("--mlflow") + 1], "0"))
+                         if d.is_dir()]
+        with open(os.path.join(mlflow_run.path, "metrics", "loss")) as f:
+            mlflow_steps = [int(line.split()[2]) for line in f]
+        with open(os.path.join(mlflow_run.path, "meta.yaml")) as f:
+            assert "status: 3" in f.read()
+        assert loss_steps == mlflow_steps == [0], (loss_steps, mlflow_steps)
+        assert "val/reward" in acc.Tags()["scalars"]
+        assert os.path.getsize(os.path.join(a[a.index("--profile-dir") + 1],
+                                            "trace_rank0.json" if name == "dp" else "trace.json"))
+        logs[name] = {"tensorboard_loss_steps": loss_steps, "mlflow_loss_steps": mlflow_steps,
+                      "profiled": profiled(a, run)}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    return {"model": "AM 128/8/3/512 batch norm, TSP-50, f32, rollout baseline behind its "
+                     "warm-up, Adam 1e-4, global batch 512",
+            "ranks": DP_WORLD, "backend": "gloo (two ranks on one card)",
+            "devices": [r["device"] for r in ranks], "steps": steps,
+            "replayed": "the one-process run's tours and random stream",
+            "tolerances": {"same_run_rtol": DP_SAME_RTOL, "close_share": DP_CLOSE_SHARE,
+                           "param_atol": DP_PARAM_ATOL},
+            "param_max_abs_dev_and_share_within_1e-6_per_step": same,
+            "loss_rel_err": loss_rel, "reward_rel_err": reward_rel,
+            "losses": [s["loss"] for s in ranks[0]["steps"]],
+            "one_process_losses": [s["loss"] for s in one["steps"]],
+            "step_ms": {f"rank{r}": [s["ms"] for s in x["steps"]] for r, x in enumerate(ranks)},
+            "one_process_step_ms": [s["ms"] for s in one["steps"]],
+            "step_ms_median": {"dp_rank0": statistics.median(s["ms"] for s in ranks[0]["steps"]),
+                               "one_process": statistics.median(s["ms"] for s in one["steps"])},
+            "k2_launches_per_step": per_step["pointer_step_single"],
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "one_process_launches": one["launches"],
+            "logs": logs, "dp_seconds": dp_seconds,
+            "one_process_cli_seconds": one["cli_seconds"]}, launches, one["launches"]
+
+
+def drive_reptile_pomo_tsp(device, epochs=REPTILE_EPOCHS, steps=REPTILE_STEPS,
+                           batch=REPTILE_BATCH):
+    """Reptile over TSP-20/50/100 with POMO at its published widths (128/8/6,
+    instance norm, multistart sampling over N starts, f32): the tasks are
+    ``random.Random(0)``'s draws, each task trains ``steps`` steps of
+    ``batch`` x N from the meta-weights with fresh optimiser state (K1 at L =
+    N = its size), and every outer update is held to θ_meta + β (θ_task −
+    θ_meta) recomputed from the saved tensors."""
+    import random
+
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.meta import Reptile, ReptileConfig
+    from rl4co_tpu_torch.models.zoo.pomo import POMO
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    tasks, updates = [], []
+
+    def make_algo(task):
+        tasks.append(task["num_loc"])
+        from rl4co_tpu_torch.envs import get_env
+
+        return POMO(get_env("tsp", **task), policy_kwargs=dict(device=device),
+                    train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+
+    class Recorded(Reptile):
+        def outer_update(self, meta, task_params, beta):
+            out = super().outer_update(meta, task_params, beta)
+            updates.append({k: (meta[k].cpu(), task_params[k].cpu(), out[k].cpu())
+                            for k in meta} | {"": beta})
+            return out
+
+    torch.manual_seed(0)
+    done, undo = instrument_updates(REINFORCE)
+    seen, undo_widths = record_launch_widths()
+    logged = []
+    t0 = time.perf_counter()
+    try:
+        reset_launches()
+        meta = Recorded(make_algo, ReptileConfig(tasks=REPTILE_TASKS, seed=0)).run(
+            epochs, steps, batch, logger=logged.append)
+        launches = dict(LAUNCHES)
+    finally:
+        undo()
+        undo_widths()
+    seconds = time.perf_counter() - t0
+    rng = random.Random(0)
+    want = [rng.choice(list(REPTILE_TASKS))["num_loc"] for _ in range(epochs + 1)]
+    assert tasks == want, (tasks, want)
+    assert {20, 50, 100} <= set(tasks[1:]), tasks
+    worst = 0.0
+    for epoch, up in enumerate(updates):
+        beta = up.pop("")
+        assert beta == 1.0 - epoch / epochs
+        for k, (m, t, out) in up.items():
+            assert torch.equal(out, m + beta * (t - m)), k
+            if epoch:
+                assert torch.equal(m, updates[epoch - 1][k][2]), k
+            worst = max(worst, (t - m).abs().max().item())
+    assert worst > 0, "no task moved the weights"
+    assert all(torch.equal(meta[k].cpu(), updates[-1][k][2]) for k in meta)
+    by_n = {}
+    for s, n in zip(done, [n for n in tasks[1:] for _ in range(steps)]):
+        assert s["launches"] == {"pointer_step_single": 0, "pointer_step_grouped": n}, s
+        assert np.isfinite(s["loss"])
+        by_n.setdefault(n, []).append(s["ms"])
+    return {"model": "POMO 128/8/6/512 instance norm, TSP-20/50/100, N starts, f32, "
+                     "Adam 1e-4 per task",
+            "epochs": epochs, "steps_per_task": steps, "batch": batch,
+            "tasks": tasks[1:], "meta_init_task": tasks[0],
+            "betas": [1.0 - e / epochs for e in range(epochs)],
+            "losses": [r["loss"] for r in logged],
+            "inner_step_ms_by_n": {str(n): v for n, v in by_n.items()},
+            "inner_step_ms_median_by_n": {str(n): statistics.median(v) for n, v in by_n.items()},
+            "k1_launches_by_n": {str(n): n * steps * tasks[1:].count(n) for n in sorted(by_n)},
+            "largest_task_move": worst, "launches_by_shape": launches_by_width(seen),
+            "seconds": seconds, "launches": launches}, launches
+
+
+def drive_remat_fused_am_tsp50(device, count=512):
+    """The AM checkpoint on the first ``count`` canonical TSP-50 instances:
+    one REINFORCE loss and backward (mean baseline, sampling) with ``remat``
+    off and on from the same generator state, the losses equal and the
+    gradients within REMAT_GRAD_GAUGE of the largest, K2 launched 50 and then
+    100 times (the recompute), the peak memory of each; then the fused
+    rollout baseline: member 1 (the snapshot at temperature 1e-9) against
+    the snapshot's greedy rollout, each departure proven a near-tie, and one
+    fused train step."""
+    from rl4co_tpu_torch.data.io import load_instances_npz
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.models import rollout
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.rl.baselines import get_reinforce_baseline
+    from rl4co_tpu_torch.rl.reinforce import REINFORCE
+
+    env = get_env("tsp", num_loc=50)
+    locs = load_instances_npz(os.path.join(ROOT, "data", "tsp", "test50_seed1234.npz"))["locs"]
+    inst = {"locs": torch.as_tensor(locs[:count]).to(device)}
+    runs = {}
+    for remat in (False, True):
+        policy = checkpoint_policy("am_tsp50", device).train().requires_grad_(True)
+        algo = REINFORCE(env, policy, baseline="mean", train_spec=DecodeSpec(
+            kind="sampling", tanh_clipping=10.0, remat=remat))
+        algo.reseed(7, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, (_, out) = algo.loss(inst)
+        forward = dict(LAUNCHES)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = {"loss": loss.item(), "actions": out.actions,
+                       "grads": {k: p.grad.clone() for k, p in policy.named_parameters()},
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                       "ms": (time.perf_counter() - t0) * 1e3,
+                       "launches_forward": forward, "launches": dict(LAUNCHES)}
+    off, on = runs[False], runs[True]
+    assert torch.equal(off["actions"], on["actions"])
+    assert off["loss"] == on["loss"], (off["loss"], on["loss"])
+    largest = max(g.abs().max().item() for g in off["grads"].values())
+    grad_err = max((on["grads"][k] - g).abs().max().item() for k, g in off["grads"].items())
+    assert grad_err <= REMAT_GRAD_GAUGE * largest, (grad_err, largest)
+    assert off["launches"]["pointer_step_single"] == env.max_steps, off["launches"]
+    assert on["launches_forward"]["pointer_step_single"] == env.max_steps
+    assert on["launches"]["pointer_step_single"] == 2 * env.max_steps, on["launches"]
+    remat_launches = {k: off["launches"][k] + on["launches"][k] for k in off["launches"]}
+
+    # the fused rollout baseline: the snapshot is the checkpoint itself
+    policy = checkpoint_policy("am_tsp50", device).train().requires_grad_(True)
+    algo = REINFORCE(env, policy, baseline=get_reinforce_baseline("rollout", warmup=False),
+                     train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0),
+                     fused_rollout_baseline=True)
+    algo.reseed(7, 1)
+    reset_launches()
+    member1 = algo.baseline_rollout(inst)
+    with torch.no_grad():
+        greedy = rollout(algo.baseline_state.bl_policy, env, inst,
+                         DecodeSpec(kind="greedy", tanh_clipping=10.0), device=device)
+    first, gap = greedy_departures(env, algo.baseline_state.bl_policy, inst,
+                                   member1.actions.cpu().numpy(), device)
+    left = first >= 0
+    assert (gap[left] <= ROUTING_TIE_ATOL).all(), gap[left]
+    differs = (member1.actions != greedy.actions).any(dim=1).cpu().numpy()
+    assert not (differs & ~left).any(), "member 1 left the greedy tour away from a tie"
+    same = ~differs
+    assert torch.equal(member1.reward[torch.as_tensor(same, device=device)],
+                       greedy.reward[torch.as_tensor(same, device=device)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = algo.update(inst)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    fused_launches = dict(LAUNCHES)
+    # greedy_departures' replay decodes through the plain `decode_step`: K2 too
+    assert fused_launches["pointer_step_single"] == 5 * env.max_steps, fused_launches
+    assert np.isfinite(metrics["loss"].item())
+    return {"model": "AM checkpoint runs/ckpt_am_tsp50 (128/8/3/512 batch norm), "
+                     f"{count} canonical TSP-50 instances",
+            "remat": {"loss": off["loss"], "loss_with_remat": on["loss"],
+                      "grad_max_abs_err": grad_err, "grad_largest": largest,
+                      "grad_gauge": REMAT_GRAD_GAUGE,
+                      "k2_launches": {"off": off["launches"]["pointer_step_single"],
+                                      "on": on["launches"]["pointer_step_single"]},
+                      "peak_memory_bytes": {"off": off["peak_memory_bytes"],
+                                            "on": on["peak_memory_bytes"]},
+                      "loss_and_backward_ms": {"off": off["ms"], "on": on["ms"]}},
+            "fused_baseline": {"member1_rows_off_greedy": int(differs.sum()),
+                               "near_tie_departures": int(left.sum()),
+                               "near_tie_gaps": [float(x) for x in gap[left]],
+                               "tie_atol": ROUTING_TIE_ATOL,
+                               "member1_mean_cost": -member1.reward.mean().item(),
+                               "greedy_mean_cost": -greedy.reward.mean().item(),
+                               "fused_step_ms": step_ms, "fused_step_loss": metrics["loss"].item(),
+                               "fused_step_bl_val": metrics["bl_val"].item()},
+            "launches_remat": remat_launches, "launches_fused": fused_launches}, remat_launches, fused_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4310,6 +4731,19 @@ def main() -> int:
         emit({"phase": "l2d_fjsp_jssp", "card": smi, **report})
     zoo_seconds = time.perf_counter() - t_zoo
 
+    # 16. infrastructure: data-parallel AM training over two processes on the
+    # card (the train CLI with --distributed, against its one-process run),
+    # Reptile over POMO on TSP-20/50/100, remat and the fused rollout baseline
+    t_infra = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report, dp_launches, dp_one_launches = drive_dp_am_tsp50(device, tmp)
+        emit({"phase": "dp_am_tsp50", "card": smi, **report})
+    report, reptile_launches = drive_reptile_pomo_tsp(device)
+    emit({"phase": "reptile_pomo_tsp", "card": smi, **report})
+    report, remat_launches, fused_launches = drive_remat_fused_am_tsp50(device)
+    emit({"phase": "remat_fused_am_tsp50", "card": smi, **report})
+    infra_seconds = time.perf_counter() - t_infra
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -4402,6 +4836,19 @@ def main() -> int:
     by_path["zoo_ham_pdp50"] = ham_launches
     by_path["zoo_matnet_ffsp20"] = ffsp_launches
     by_path["zoo_l2d_fjsp_jssp"] = l2d_launches
+    # infrastructure: K2 in both data-parallel ranks (summed) and in their
+    # one-process reference, under remat and in both members of the fused
+    # baseline; K1 in Reptile's POMO tasks at N 20, 50 and 100
+    for path, counts, name in (("training_dp_am_tsp50_two_ranks", dp_launches, "pointer_step_single"),
+                               ("training_dp_am_tsp50_one_process", dp_one_launches,
+                                "pointer_step_single"),
+                               ("training_reptile_pomo_tsp", reptile_launches,
+                                "pointer_step_grouped"),
+                               ("training_remat_am_tsp50", remat_launches, "pointer_step_single"),
+                               ("training_fused_baseline_am_tsp50", fused_launches,
+                                "pointer_step_single")):
+        assert counts[name] > 0, (path, counts)
+        by_path[path] = counts
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -4419,7 +4866,7 @@ def main() -> int:
           "routing_rest_and_glop_phases_seconds": glop_seconds,
           "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds,
           "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds,
-          "zoo_phases_seconds": zoo_seconds})
+          "zoo_phases_seconds": zoo_seconds, "infrastructure_phases_seconds": infra_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from rl4co_tpu_torch.parallel.mesh import uniform_rows
 from rl4co_tpu_torch.utils.dtype import torch_dtype
 
 MASK_VALUE = -1e9
@@ -103,6 +104,10 @@ class DecodeSpec:
     compute_dtype: None (f32) or a floating dtype's name, e.g. ``"bfloat16"``:
         the rollout runs on the parameters rounded through it
         (`rl4co_tpu_torch/utils/dtype.py`); logits, softmax and sampling stay f32.
+    remat: recompute each decode step's logits in the backward pass instead
+        of keeping its intermediates (`torch.utils.checkpoint`, the
+        counterpart of ``jax.checkpoint`` on the scan body); the draw stays
+        outside the recomputed region.
     """
 
     kind: str = "sampling"
@@ -117,7 +122,6 @@ class DecodeSpec:
     select_best: bool = False
     beam_width: int = 0
     compute_dtype: Optional[str] = None
-    # rematerialize the decode step in the backward pass: not ported, True raises
     remat: bool = False
 
     def __post_init__(self):
@@ -125,9 +129,6 @@ class DecodeSpec:
             raise ValueError(f"unknown decode kind {self.kind!r}")
         if self.multistart and self.num_samples > 1:
             raise ValueError("multistart and num_samples > 1 are mutually exclusive")
-        if self.remat:
-            raise NotImplementedError(
-                "remat=True: rematerialising the decode step is not ported (ROADMAP.md)")
         if self.compute_dtype is not None:
             torch_dtype(self.compute_dtype)  # raises on a name that is no floating dtype
 
@@ -214,12 +215,12 @@ def decode_action(
     """Select one action per row and return (action, its logprob).
 
     greedy → argmax; sampling → categorical draw from ``generator`` (on the
-    tensors' device); evaluate → replay given actions.
+    tensors' device; `categorical_draw`); evaluate → replay given actions.
     """
     if spec.kind == "greedy":
         action = torch.argmax(logprobs, dim=-1)
     elif spec.kind == "sampling":
-        action = torch.multinomial(logprobs.exp(), 1, generator=generator)[:, 0]
+        action = categorical_draw(logprobs, generator)
         # guard against numerically-impossible draws: fall back to argmax on
         # rows whose draw is masked
         bad = ~torch.gather(mask, -1, action[:, None])[:, 0]
@@ -232,6 +233,18 @@ def decode_action(
         raise ValueError(spec.kind)
     action = action.long()
     return action, take_along_last(logprobs, action)
+
+
+def categorical_draw(logprobs: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw per row of ``[rows, A]`` log-probabilities by the inverse of
+    the cumulative distribution at a uniform per row (`uniform_rows`: in a
+    data-parallel step, the rank's rows of the global draw). An action of
+    probability 0 is never drawn."""
+    cdf = logprobs.exp().cumsum(dim=-1)
+    u = uniform_rows(cdf.shape[0], generator, cdf.device)
+    action = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)[:, 0]
+    return action.clamp(max=cdf.shape[-1] - 1)
 
 
 def take_along_last(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

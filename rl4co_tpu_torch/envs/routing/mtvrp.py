@@ -330,9 +330,12 @@ class MTVRP(Env):
         return starts[None, :].expand(locs.shape[0], -1)
 
     def solve(self, instances: Instance, max_runtime: float = 10.0, **kwargs):
-        raise NotImplementedError(
-            "MTVRP's classical baselines (mtvrp_baselines.py and the solver adapters) are not "
-            "ported to rl4co_tpu_torch yet (ROADMAP.md, item 15)")
+        """Classical baseline: by default the multistart nearest-feasible-
+        neighbour construction, or pyvrp / lkh / ortools via ``solver=``
+        (`mtvrp_baselines.solve`). Returns ``(actions, costs)``."""
+        from rl4co_tpu_torch.envs.routing.mtvrp_baselines import solve
+
+        return solve(instances, max_runtime, env=self, **kwargs)
 
     def check_solution_validity(self, instance, actions) -> None:
         """Every customer once, then a replay of the route length, time

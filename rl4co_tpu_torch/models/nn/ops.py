@@ -6,7 +6,10 @@ Normalization semantics:
   **always with the statistics of the batch at hand**, computed in f32 with
   the biased variance and no running averages. `nn.BatchNorm1d` in eval mode
   would diverge from this. Consequence: an instance's encoding depends on
-  which instances share its dispatch.
+  which instances share its dispatch. In a data-parallel train step
+  (`rl4co_tpu_torch.parallel.mesh.sharded`) the batch is the global one: the
+  mean and variance come from sums all-reduced over the ranks, and so does
+  their backward.
 - ``instance``: normalize each channel over nodes, per instance, with affine.
 - ``layer``: normalize over (nodes, channels) per instance, no affine.
 - ``rms``: RMSNorm over channels with a scale.
@@ -17,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rl4co_tpu_torch.parallel.mesh import active_shard, all_reduce_sum, global_count
 
 EPSILON = 1e-5
 
@@ -47,13 +52,27 @@ class Normalization(nn.Module):
         var = x.var(dim=dims, keepdim=True, unbiased=False)
         return (x - mean) * torch.rsqrt(var + EPSILON)
 
+    @staticmethod
+    def _standardize_global(x: torch.Tensor, dims) -> torch.Tensor:
+        """`_standardize` over every rank's rows: the sum, then the sum of
+        squared deviations, each all-reduced."""
+        count = global_count(x.numel() // x.shape[-1])
+        mean = all_reduce_sum(x.sum(dim=dims, keepdim=True)) / count
+        var = all_reduce_sum((x - mean).square().sum(dim=dims, keepdim=True)) / count
+        return (x - mean) * torch.rsqrt(var + EPSILON)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.normalization in (None, "none"):
             return x
         in_dtype = x.dtype
         x = x.float()  # statistics in f32
         if self.normalization == "batch":
-            y = self._standardize(x, tuple(range(x.ndim - 1))) * self.scale + self.bias
+            dims = tuple(range(x.ndim - 1))
+            if active_shard() is None:
+                x = self._standardize(x, dims)
+            else:
+                x = self._standardize_global(x, dims)
+            y = x * self.scale + self.bias
         elif self.normalization == "instance":
             y = self._standardize(x, (-2,)) * self.scale + self.bias
         elif self.normalization == "layer":

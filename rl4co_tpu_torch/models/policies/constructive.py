@@ -28,6 +28,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from rl4co_tpu_torch.decoding import (
@@ -39,7 +40,7 @@ from rl4co_tpu_torch.decoding import (
 from rl4co_tpu_torch.envs.base import Env
 from rl4co_tpu_torch.models.nn.env_embeddings.dynamic import DYNAMIC_EMBEDDING_REGISTRY
 from rl4co_tpu_torch.utils.device import resolve_device
-from rl4co_tpu_torch.utils.dtype import rounded_parameters, torch_dtype
+from rl4co_tpu_torch.utils.dtype import computing_in, rounded_parameters, torch_dtype
 from rl4co_tpu_torch.utils.ops import batchify, unbatchify
 
 
@@ -120,11 +121,14 @@ def rollout(
     args = (policy, env, instances, spec, generator, replay_actions)
     if spec.compute_dtype is None:
         return _rollout(*args)
-    params = rounded_parameters(policy, torch_dtype(spec.compute_dtype))
-    return torch.func.functional_call(policy, params, (_rollout, *args))
+    dtype = torch_dtype(spec.compute_dtype)
+    params = rounded_parameters(policy, dtype)
+    with computing_in(dtype):
+        return torch.func.functional_call(policy, params, (_rollout, *args, params))
 
 
-def _rollout(policy, env, instances, spec, generator, replay_actions) -> RolloutOutput:
+def _rollout(policy, env, instances, spec, generator, replay_actions,
+             params=None) -> RolloutOutput:
     if spec.kind == "beam_search":
         from rl4co_tpu_torch.models.policies.beam_search import beam_search_rollout
 
@@ -133,7 +137,7 @@ def _rollout(policy, env, instances, spec, generator, replay_actions) -> Rollout
                                    select_best=spec.select_best)
     cache = policy.precompute(policy.encode(instances))
     return rollout_from_cache(policy, env, instances, cache, spec,
-                              generator, replay_actions)
+                              generator, replay_actions, params=params)
 
 
 def rollout_from_cache(
@@ -144,6 +148,7 @@ def rollout_from_cache(
     spec: DecodeSpec,
     generator: Optional[torch.Generator] = None,
     replay_actions: Optional[torch.Tensor] = None,
+    params: Optional[dict] = None,
 ) -> RolloutOutput:
     """Decode loop from a precomputed cache, on the cache's device.
 
@@ -172,7 +177,7 @@ def rollout_from_cache(
     entropy = torch.zeros_like(state.done, dtype=torch.float32)
     for t in range(env.max_steps):
         mask = env.action_mask(state)
-        logits = policy.decode_step(cache, state, mask, decode_repeats)
+        logits = decode_logits(policy, cache, state, mask, decode_repeats, spec, params)
         logprobs = process_logits_spec(logits.float(), mask, spec)
         replay_t = replay_actions[:, t] if replay_actions is not None else None
         action, logprob = decode_action(logprobs, mask, spec, generator, replay_t)
@@ -199,6 +204,26 @@ def rollout_from_cache(
     if num_repeats > 1 and spec.select_best:
         out = select_best(out, num_repeats)
     return out
+
+
+def decode_logits(policy, cache, state, mask, num_repeats: int, spec: DecodeSpec,
+                  params: Optional[dict] = None) -> torch.Tensor:
+    """The decode step's logits. Under ``spec.remat`` with a graph, the
+    step's intermediates are dropped and recomputed in the backward pass
+    (`torch.utils.checkpoint`), on the parameters the rollout runs on:
+    ``params``, the rounded ones of a compute dtype, or the policy's own."""
+    if not (spec.remat and torch.is_grad_enabled()):
+        return policy.decode_step(cache, state, mask, num_repeats)
+
+    def step(cache, state, mask):
+        if params is None:
+            return policy.decode_step(cache, state, mask, num_repeats)
+        with computing_in(torch_dtype(spec.compute_dtype)):
+            return torch.func.functional_call(
+                policy, params, (policy.decode_step, cache, state, mask, num_repeats))
+
+    return torch.utils.checkpoint.checkpoint(step, cache, state, mask, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def select_best(out: RolloutOutput, num_repeats: int) -> RolloutOutput:

@@ -10,7 +10,9 @@
   every start as a query of its instance.
 
 The mixer's parameters are stored as the JAX package stores them, as the
-uniform draw in ``[0, 2·init)``, and shifted by ``init`` in the forward.
+uniform draw in ``[0, 2·init)``, and shifted by ``init`` in the forward: in
+f32, or under a bf16 compute dtype as JAX computes ``bf16(p) - init`` (both
+operands and the result rounded to bf16).
 The columns start from the deterministic one-hot ``eye(N, D)``, as in the
 JAX package (the reference shuffles the slots).
 """
@@ -27,9 +29,19 @@ from rl4co_tpu_torch.models.nn.env_embeddings.context import TSPContext
 from rl4co_tpu_torch.models.nn.ops import Normalization
 from rl4co_tpu_torch.models.policies.constructive import PrecomputedCache
 from rl4co_tpu_torch.models.zoo.am import AttentionModelPolicy
+from rl4co_tpu_torch.utils.dtype import compute_dtype_in_force
 
 MIX1_INIT = 0.5 ** 0.5
 MIX2_INIT = (1 / 16) ** 0.5
+
+
+def shifted(p: torch.Tensor, init: float) -> torch.Tensor:
+    """``p - init`` in the compute dtype in force (f32 without one), back in
+    ``p``'s dtype; differentiable."""
+    dtype = compute_dtype_in_force()
+    if dtype is None:
+        return p - init
+    return (p.to(dtype) - torch.tensor(init, dtype=dtype, device=p.device)).to(p.dtype)
 
 
 class MixedScoresAttention(nn.Module):
@@ -57,8 +69,8 @@ class MixedScoresAttention(nn.Module):
         k, v = (_split_heads(t, h) for t in self.Wkv(kv_input).chunk(2, dim=-1))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])  # [B, H, M, N]
         feats = torch.stack([scores, dmat[:, None].expand_as(scores)], dim=-1)  # [..., 2]
-        w1, b1 = self.mix_W1 - MIX1_INIT, self.mix_b1 - MIX1_INIT
-        w2, b2 = self.mix_W2 - MIX2_INIT, self.mix_b2 - MIX2_INIT
+        w1, b1 = shifted(self.mix_W1, MIX1_INIT), shifted(self.mix_b1, MIX1_INIT)
+        w2, b2 = shifted(self.mix_W2, MIX2_INIT), shifted(self.mix_b2, MIX2_INIT)
         hmix = torch.relu(torch.einsum("bhmns,hsk->bhmnk", feats, w1)
                           + b1[None, :, None, None, :])
         mixed = (torch.einsum("bhmnk,hko->bhmno", hmix, w2) + b2[None, :, None, None, :])[..., 0]

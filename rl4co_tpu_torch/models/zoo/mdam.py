@@ -157,6 +157,8 @@ class MDAM(REINFORCE):
     path policies. The baseline argument is ignored (`NoBaseline`, as the
     JAX module sets whatever it is given)."""
 
+    data_parallel = False  # its loss takes batch means of its own
+
     def __init__(self, env, policy: MDAMPolicy, kl_coef: float = 0.01, baseline=None,
                  **kwargs):
         super().__init__(env, policy, baseline=NoBaseline(), **kwargs)

@@ -94,6 +94,8 @@ class PolyNet(REINFORCE):
     `SharedBaseline(num_repeats=k)`, whatever is passed. Without a
     ``policy``, `PolyNetPolicy(env.name, k=k, **policy_kwargs)`."""
 
+    data_parallel = False  # its loss takes batch means of its own
+
     def __init__(self, env: Env, policy: Optional[PolyNetPolicy] = None, k: int = 64,
                  val_num_solutions: int = 64, policy_kwargs: Optional[dict] = None,
                  train_spec: DecodeSpec = DecodeSpec(kind="sampling"), **kwargs):

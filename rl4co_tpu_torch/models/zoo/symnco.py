@@ -90,6 +90,8 @@ class SymNCO(REINFORCE):
     multistart sampling over that many starts. Without a ``policy``,
     `SymNCOPolicy(env.name, **policy_kwargs)`."""
 
+    data_parallel = False  # its loss takes batch means of its own
+
     def __init__(self, env: Env, policy: Optional[SymNCOPolicy] = None, num_augment: int = 4,
                  augment_fn: str = "symmetric", alpha: float = 0.2, beta: float = 1.0,
                  num_starts: int = 0, policy_kwargs: Optional[dict] = None,

@@ -14,6 +14,10 @@ baseline's snapshot is a frozen deep copy of the live policy. Host-side
 state (the rollout baseline's held-out set ``host["eval_instances"]`` and
 its incumbent's rewards ``host["eval_rewards"]``) lives in a plain dict
 owned by the trainer and enters `epoch_end` only.
+
+In a data-parallel train step (`rl4co_tpu_torch.parallel.mesh.sharded`) the
+batch means of the mean and exponential baselines are taken over the global
+batch, and the rollout baseline's epoch-end swap is rank 0's decision.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from rl4co_tpu_torch.parallel.mesh import agree_with_rank0, global_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +53,11 @@ def _nan_scalar(policy: nn.Module) -> torch.Tensor:
 
 def _ema_start(value: torch.Tensor, reward: torch.Tensor) -> torch.Tensor:
     """The moving value, or the batch mean while there is none (NaN) yet."""
-    return torch.where(torch.isnan(value), reward.mean(), value)
+    return torch.where(torch.isnan(value), global_mean(reward), value)
 
 
 def _ema_update(value: torch.Tensor, reward: torch.Tensor, beta: float) -> torch.Tensor:
-    m = reward.mean()
+    m = global_mean(reward)
     return torch.where(torch.isnan(value), m, beta * value + (1 - beta) * m)
 
 
@@ -126,7 +132,7 @@ class MeanBaseline(Baseline):
     name = "mean"
 
     def eval(self, state, instances, reward, rollout_fn):
-        return reward.mean().expand_as(reward), _zero(reward)
+        return global_mean(reward).expand_as(reward), _zero(reward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,7 +201,7 @@ class RolloutBaseline(Baseline):
             base = np.asarray(base)
             accept = (cand.mean() - base.mean() > 0
                       and paired_ttest_pvalue(cand, base) < self.bl_alpha)
-        if not accept:
+        if not agree_with_rank0(accept):
             return state, host
         return (dataclasses.replace(state, bl_policy=snapshot_policy(policy)),
                 {**host, "eval_rewards": cand})

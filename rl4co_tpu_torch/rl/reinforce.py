@@ -11,9 +11,17 @@ Randomness is one `torch.Generator` on the policy's device, reseeded by
 `reseed(seed, epoch)`: a run resumed at an epoch boundary replays the draws
 of the uninterrupted one (the JAX package folds the epoch into its key).
 
-Not ported (ROADMAP.md): ``fused_rollout_baseline`` with its
-``temperature_override``; ``chunk``, ``donate`` and ``mesh`` of
-``make_train_step``.
+With a mesh (`rl4co_tpu_torch.parallel.mesh`), `train_step` generates the
+global batch on every rank, keeps this rank's rows and runs `update` on them
+inside `sharded`: batch norm, the baselines' means, the draws and the
+metrics are global, and the gradients are averaged across ranks before the
+optimiser step, so every rank takes the one-device run's step.
+
+``fused_rollout_baseline`` (rollout baseline without its warm-up, as in the
+JAX package) computes the baseline in a second rollout: the snapshot's at
+temperature 1e-9 from the same generator state as the live rollout; the JAX
+package runs both as members of one vmapped scan. Not ported (ROADMAP.md):
+``chunk`` and ``donate`` of ``make_train_step``.
 """
 
 from __future__ import annotations
@@ -28,11 +36,20 @@ from rl4co_tpu_torch.decoding import DecodeSpec
 from rl4co_tpu_torch.envs.base import Env
 from rl4co_tpu_torch.models.policies.constructive import (
     ConstructivePolicy,
+    RolloutOutput,
     rollout,
+)
+from rl4co_tpu_torch.parallel.mesh import (
+    Mesh,
+    active_shard,
+    global_means,
+    shard_batch,
+    sharded,
 )
 from rl4co_tpu_torch.rl.baselines import (
     Baseline,
     BaselineState,
+    RolloutBaseline,
     get_reinforce_baseline,
     snapshot_policy,
 )
@@ -53,6 +70,12 @@ class ConstructiveAlgorithm:
     count and the random stream (one `torch.Generator` on the policy's
     device, reseeded by `reseed`), the sampling rollout and the greedy
     evaluation."""
+
+    # whether a data-parallel step (`train_step(batch, mesh)`) is the
+    # one-device step, which the Trainer asks before it takes a mesh: a loss
+    # that takes batch means of its own (rather than through the baseline)
+    # is not; an algorithm without the attribute does not train data-parallel
+    data_parallel = False
 
     def __init__(self, env: Env, policy: ConstructivePolicy, train_spec: DecodeSpec,
                  val_spec: DecodeSpec):
@@ -114,6 +137,8 @@ class REINFORCE(ConstructiveAlgorithm):
     ``"cuda"`` unless told otherwise, and raises without a card).
     """
 
+    data_parallel = True
+
     def __init__(
         self,
         env: Env,
@@ -125,8 +150,10 @@ class REINFORCE(ConstructiveAlgorithm):
         grad_clip: Optional[float] = 1.0,
         optimizer: str = "adam",
         lr_schedule: Optional[Callable[[int], float]] = None,
+        fused_rollout_baseline: bool = False,
     ):
         super().__init__(env, policy, train_spec, val_spec)
+        self.fused_rollout_baseline = fused_rollout_baseline
         self.baseline = (get_reinforce_baseline(baseline) if isinstance(baseline, str)
                          else baseline)
         self.optimizer = get_optimizer(
@@ -142,6 +169,8 @@ class REINFORCE(ConstructiveAlgorithm):
         graph. Returns ``(loss, (metrics, rollout output))``; the metrics are
         detached tensors. With ``replay_actions`` the rollout replays those
         actions (``kind="evaluate"``) where it would draw its own."""
+        if self.fused_rollout_baseline and isinstance(self.baseline, RolloutBaseline):
+            return self._fused_loss(instances, replay_actions)
         out = self.train_rollout(instances, replay_actions)
         bl_val, bl_loss = self.baseline.eval(
             self.baseline_state, instances, out.reward, self.greedy_reward_fn())
@@ -158,15 +187,59 @@ class REINFORCE(ConstructiveAlgorithm):
         }
         return loss, (metrics, out)
 
+    def baseline_rollout(self, instances) -> RolloutOutput:
+        """The fused baseline's member: the snapshot's rollout under the
+        train spec at temperature 1e-9 (greedy but at exact ties), drawing
+        from a copy of the generator as the live rollout is about to."""
+        generator = torch.Generator(device=self.device)
+        generator.set_state(self.generator.get_state())
+        with torch.no_grad():
+            return rollout(self.baseline_state.bl_policy, self.env, instances,
+                           dataclasses.replace(self.train_spec, temperature=1e-9),
+                           generator=generator, device=self.device)
+
+    def _fused_loss(self, instances, replay_actions: Optional[torch.Tensor] = None):
+        """The JAX package's `_fused_loss`: the baseline is member 1's reward,
+        without a baseline loss."""
+        bl_val = self.baseline_rollout(instances).reward
+        out = self.train_rollout(instances, replay_actions)
+        advantage = out.reward - bl_val
+        reinforce_loss = -(advantage * out.log_likelihood).mean()
+        metrics = {
+            "loss": reinforce_loss.detach(),
+            "reinforce_loss": reinforce_loss.detach(),
+            "bl_loss": torch.zeros((), device=self.device),
+            "reward": out.reward.mean(),
+            "bl_val": bl_val.mean(),
+            "entropy": out.entropy.detach().mean(),
+        }
+        return reinforce_loss, (metrics, out)
+
     # ---- train step ----
+
+    def train_step(self, batch_size: int, mesh: Optional[Mesh] = None) -> dict:
+        """Generate a fresh batch of ``batch_size`` on the device and `update`
+        on it; with ``mesh``, on this rank's rows of it (the batch is the
+        global one)."""
+        instances = self.env.generate(batch_size, self.generator, self.device)
+        if mesh is None:
+            return self.update(instances)
+        with sharded(mesh, mesh.local_batch(batch_size)):
+            return self.update(shard_batch(instances, mesh))
 
     def update(self, instances, replay_actions: Optional[torch.Tensor] = None) -> dict:
         """One optimisation step on ``instances``: loss → backward → clip →
         optimiser step → baseline update. Returns the metrics as tensors on
-        the device (nothing is fetched here)."""
+        the device (nothing is fetched here). In a data-parallel step the
+        gradients are averaged across ranks before the clip, and the metrics
+        are global means."""
         self.optimizer.zero_grad()
         loss, (metrics, out) = self.loss(instances, replay_actions)
         loss.backward()
+        shard = active_shard()
+        if shard is not None:
+            shard.mesh.average_gradients(self.policy.parameters())
+            metrics = global_means(metrics)
         self.optimizer.step()
         self.baseline_state = self.baseline.update_step(
             self.baseline_state, out.reward.detach())

@@ -8,9 +8,21 @@ and model names, plus ``--device``:
         --num-loc 20 --batch-size 512 --epochs 1 --device cuda
 
 The default ``--device`` is ``cuda`` (raising without a card); ``--device cpu``
-runs on the CPU. The flags of back ends not ported yet (``--tensorboard``,
-``--mlflow``, ``--dp`` above 1, ``--distributed``) raise
-`NotImplementedError` naming their ROADMAP.md item. ``--search`` runs Active Search, EAS-Emb or EAS-Lay with the trained
+runs on the CPU. ``--log-file``, ``--tensorboard`` and ``--mlflow`` write the
+metrics as JSONL, TensorBoard event files and an MLflow file store;
+``--profile-dir`` traces ``--profile-steps`` train steps with
+`torch.profiler`. Data parallelism (`rl4co_tpu_torch.parallel.mesh`):
+``--distributed`` joins the processes that the caller started (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
+``--dp N`` above 1 starts N-1 more processes of this command itself and runs
+rank 0 here, over N local cards (raising with fewer, or with a card index in
+``--device``) or, with ``--device cpu``, N processes on the CPU; ``--dp 0``
+takes every local card when there are more than one. The default is one
+process, where the JAX command line's is ``--dp 0``: of the port's
+algorithms only REINFORCE's (AM, POMO and the models built on them, but
+MDAM, SymNCO and PolyNet) train data-parallel, and the others raise under a
+mesh. ``--batch-size`` is the global batch; rank 0 logs and writes the
+checkpoints. ``--search`` runs Active Search, EAS-Emb or EAS-Lay with the trained
 policy on ``--search-size`` generated instances after training and prints
 the JAX command line's JSON line ``{"search": ..., "best_reward": ...}``.
 ``dact``, ``n2s`` and ``neuopt`` ignore ``--env`` and train on their own
@@ -36,6 +48,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import socket
+import subprocess
+import sys
 from typing import Optional
 
 import torch
@@ -78,15 +94,11 @@ MODEL_NAMES = (
 )
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to rl4co_tpu_torch yet "
-                               f"(ROADMAP.md, item {item})")
-
-
-def build(spec: WorkloadSpec, logger=None):
+def build(spec: WorkloadSpec, mesh=None, logger=None, profile_dir: Optional[str] = None,
+          profile_steps: int = 5):
     """(algorithm, trainer) of ``spec``. The policy's weights are drawn after
     ``torch.manual_seed(spec.seed)``, so the same spec builds the same
-    untrained policy."""
+    untrained policy; with a ``mesh`` every rank builds it alike."""
     if spec.model not in MODEL_NAMES:
         raise ValueError(f"Unknown model {spec.model}. Available: {MODEL_NAMES}")
     # am-multienv takes a comma env list and builds its own env dict
@@ -103,8 +115,10 @@ def build(spec: WorkloadSpec, logger=None):
         val_data_size=spec.val_data_size,
         seed=spec.seed,
         ckpt_dir=spec.ckpt_dir,
+        profile_dir=profile_dir,
+        profile_steps=profile_steps,
     )
-    return algo, Trainer(algo, cfg, logger=logger)
+    return algo, Trainer(algo, cfg, mesh=mesh, logger=logger)
 
 
 def _build_model(spec: WorkloadSpec, env, pkw: dict, train_spec: DecodeSpec):
@@ -227,28 +241,89 @@ def main(argv: Optional[list] = None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--log-file", default=None, help="JSONL metrics file")
     p.add_argument("--tensorboard", default=None, metavar="LOGDIR",
-                   help="also write TensorBoard event files to LOGDIR (not ported)")
+                   help="also write TensorBoard event files to LOGDIR")
     p.add_argument("--mlflow", default=None, metavar="MLRUNS_DIR",
-                   help="also write an MLflow file-store run (not ported)")
+                   help="also write an MLflow file-store run (mlruns layout)")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace of --profile-steps train steps of the first "
+                        "epoch, after its first")
+    p.add_argument("--profile-steps", type=int, default=5)
     p.add_argument("--ckpt-dir", default=None,
                    help="save best.pt (val/reward max) and last.pt here")
     p.add_argument("--resume-from", default=None,
                    help="checkpoint file written by a previous run (…/last.pt or …/best.pt)")
     p.add_argument("--precision", default="bf16-mixed", choices=["bf16-mixed", "f32"])
-    p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (0 or 1: one device; above 1 is not ported)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks on this machine (0 = all local cards when >1)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported)")
+                   help="join the processes the caller started (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--device", default="cuda", help="cuda (default), cuda:<i> or cpu")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
-    for flag, value, item in (("--tensorboard", args.tensorboard, 15),
-                              ("--mlflow", args.mlflow, 15),
-                              ("--dp above 1", args.dp > 1, 15),
-                              ("--distributed", args.distributed, 15)):
-        if value:
-            raise not_ported(flag, item)
+    dp = args.dp
+    if dp == 0 and not args.distributed and torch.device(args.device).type == "cuda":
+        dp = torch.cuda.device_count()
+    if dp > 1 and torch.device(args.device).index is not None:
+        raise ValueError(f"--dp {dp} puts its ranks on cards 0..{dp - 1}: give --device cuda, "
+                         f"not {args.device}")
+    children, mesh, device = [], None, args.device
+    if args.distributed or dp > 1:
+        from rl4co_tpu_torch.parallel.mesh import init_distributed
 
+        if args.distributed:
+            mesh, dev = init_distributed(args.device)
+        else:
+            children, port = _start_local_ranks(argv, dp, args.device)
+            mesh, dev = init_distributed(args.device, rank=0, world=dp, local_rank=0,
+                                         addr="localhost", port=port)
+        device = str(dev)
+        print(f"Data-parallel mesh: dp={mesh.world}, rank {mesh.rank} on {device}")
+    try:
+        algo = _train(args, mesh, device)
+    except BaseException:
+        for child in children:
+            child.kill()
+        raise
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    for child in children:
+        if child.wait() != 0:
+            raise RuntimeError(f"data-parallel rank process {child.args} exited with "
+                               f"{child.returncode}")
+    return algo
+
+
+def _start_local_ranks(argv: list, dp: int, device: str):
+    """Ranks 1..dp-1 of ``--dp dp``: this command again with ``--distributed``
+    in place of ``--dp``, one process per rank; returns them and the port of
+    rank 0's rendezvous."""
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < dp:
+        raise ValueError(f"--dp {dp} needs {dp} cards; {torch.cuda.device_count()} visible")
+    rest, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--dp":
+            skip = True
+        elif not a.startswith("--dp="):
+            rest.append(a)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "WORLD_SIZE": str(dp), "LOCAL_WORLD_SIZE": str(dp),
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "rl4co_tpu_torch.train", *rest, "--distributed"],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}) for r in range(1, dp)]
+    return children, port
+
+
+def _train(args, mesh, device: str):
     spec = WorkloadSpec(
         env_name=args.env,
         env_kwargs=(("num_loc", args.num_loc),),
@@ -262,16 +337,24 @@ def main(argv: Optional[list] = None):
         seed=args.seed,
         precision=args.precision,
         ckpt_dir=args.ckpt_dir,
-        device=args.device,
+        device=device,
     )
     logger = None
-    if args.log_file:
-        from rl4co_tpu_torch.loggers import JSONLLogger, MultiLogger
+    if (args.log_file or args.tensorboard or args.mlflow) and (mesh is None or mesh.rank == 0):
+        from rl4co_tpu_torch.loggers import (JSONLLogger, MLflowFileLogger, MultiLogger,
+                                             TensorBoardLogger)
 
-        logger = MultiLogger(lambda m: print(json.dumps({k: str(v) for k, v in m.items()})),
-                             JSONLLogger(args.log_file))
+        parts = [lambda m: print(json.dumps({k: str(v) for k, v in m.items()}))]
+        if args.log_file:
+            parts.append(JSONLLogger(args.log_file))
+        if args.tensorboard:
+            parts.append(TensorBoardLogger(args.tensorboard))
+        if args.mlflow:
+            parts.append(MLflowFileLogger(root=args.mlflow, run_name=f"{args.model}-{args.env}"))
+        logger = MultiLogger(*parts)
     print(f"Workload: {spec}")
-    algo, trainer = build(spec, logger=logger)
+    algo, trainer = build(spec, mesh=mesh, logger=logger, profile_dir=args.profile_dir,
+                          profile_steps=args.profile_steps)
     algo = trainer.fit(resume_from=args.resume_from)
     if args.search:
         result = run_search(args.search, algo, args.search_size, spec.seed + 1,

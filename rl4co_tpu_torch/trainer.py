@@ -18,7 +18,18 @@ For the multi-env algorithm that is the length of each env's block of steps,
 so it changes what is trained. Every other algorithm takes one
 ``train_step(batch_size)`` per step.
 
-Not ported (ROADMAP.md): ``profile_dir`` and ``mesh``. The JAX trainer's
+With a ``mesh`` (`rl4co_tpu_torch.parallel.mesh`), for an algorithm whose
+``data_parallel`` is true (it raises for any other), every rank runs this loop:
+the parameters start from rank 0's, each train step runs on the rank's rows
+of the global batch (``batch_size``, which must divide by the ranks),
+validation runs the whole set on every rank, and rank 0 alone logs and
+writes checkpoints.
+
+``profile_dir``: `torch.profiler` traces ``profile_steps`` train steps of the
+first epoch after its first dispatch (closed before validation if the epoch
+is shorter) into ``<profile_dir>/trace[_rank<r>].json``, and the trainer
+logs ``profile/steps``, ``profile/wall_ms`` and ``profile/device_busy_ms``
+(the sum of the device's kernel times; 0 on the CPU). The JAX trainer's
 CPU-backend initialisation and key placement work around a remote TPU and
 have no counterpart.
 """
@@ -27,12 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, Optional
 
 import torch
 
 from rl4co_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+from rl4co_tpu_torch.parallel.mesh import Mesh, replicate
 from rl4co_tpu_torch.rl.baselines import RolloutBaseline, WarmupBaseline
 from rl4co_tpu_torch.rl.reinforce import seeded_generator
 
@@ -49,6 +62,10 @@ class TrainerConfig:
     val_batch_size: int = 1024
     seed: int = 1234
     log_every: int = 50
+    # torch.profiler trace of `profile_steps` train steps of the first epoch,
+    # after its first dispatch, into this directory
+    profile_dir: Optional[str] = None
+    profile_steps: int = 5
     # When ckpt_dir is set, `fit` writes `<ckpt_dir>/last.pt` every
     # `ckpt_every` epochs and `<ckpt_dir>/best.pt` whenever the monitored
     # value improves.
@@ -73,10 +90,14 @@ class Trainer:
     It runs on the algorithm's device."""
 
     def __init__(self, algorithm, config: Optional[TrainerConfig] = None,
+                 mesh: Optional[Mesh] = None,
                  logger: Optional[Callable[[dict], None]] = None):
         self.algo = algorithm
         self.config = config or TrainerConfig()
+        self.mesh = mesh
         self.logger = logger or (lambda m: print({k: _fmt(v) for k, v in m.items()}))
+        if mesh is not None and mesh.rank != 0:
+            self.logger = lambda m: None   # rank 0 logs
         self.history: list[dict] = []
 
     def _sync(self) -> None:
@@ -109,9 +130,18 @@ class Trainer:
                 monitored for ``best.pt``. Defaults to one generated set
                 logged as plain ``val/*``.
         """
-        cfg, algo = self.config, self.algo
+        cfg, algo, mesh = self.config, self.algo, self.mesh
         env, device = algo.env, algo.device
         host: dict = {}
+        if mesh is not None:
+            if not getattr(algo, "data_parallel", False):
+                raise ValueError(f"{type(algo).__name__} does not train data-parallel")
+            mesh.local_batch(cfg.batch_size)   # raises unless it divides
+            replicate(algo.policy, mesh)
+            bl_policy = getattr(getattr(algo, "baseline_state", None), "bl_policy", None)
+            if bl_policy is not None:
+                replicate(bl_policy, mesh)
+        writes = mesh is None or mesh.rank == 0
 
         n_params = sum(p.numel() for p in algo.policy.parameters())
         self.logger({"model/params_total": n_params, "seed": cfg.seed,
@@ -150,19 +180,30 @@ class Trainer:
                     if hasattr(algo, "make_train_step") else None)
         eval_step = algo.make_eval_step()
 
+        step_kwargs = {} if mesh is None else {"mesh": mesh}
+        profiler = None
         fit_t0 = time.perf_counter()
         for epoch in range(start_epoch, cfg.epochs):
             algo.reseed(cfg.seed, _STREAM_EPOCH, epoch)
             self._sync()
             t0 = time.perf_counter()
             for it in range(0, steps_per_epoch, chunk):
-                metrics = dispatch() if dispatch else algo.train_step(cfg.batch_size)
+                if cfg.profile_dir and epoch == start_epoch and it == chunk:
+                    profiler = (self._start_profile(), time.perf_counter())  # not dispatch 0
+                metrics = (dispatch() if dispatch
+                           else algo.train_step(cfg.batch_size, **step_kwargs))
+                if profiler is not None and it // chunk >= cfg.profile_steps:
+                    self._stop_profile(*profiler, it // chunk)
+                    profiler = None
                 # the only fetches of the loop: a dispatch of several steps is
                 # logged under its last step's index
                 if chunk > 1:
                     self.logger({"epoch": epoch, "it": it + chunk - 1, **_fetch(metrics)})
                 elif it % cfg.log_every == 0:
                     self.logger({"epoch": epoch, "it": it, **_fetch(metrics)})
+            if profiler is not None:   # a short epoch: close the trace before validation
+                self._stop_profile(*profiler, steps_per_epoch // chunk - 1)
+                profiler = None
             self._sync()
             train_s = time.perf_counter() - t0
 
@@ -188,7 +229,7 @@ class Trainer:
                 and time.perf_counter() - fit_t0 > cfg.max_hours * 3600
             )
 
-            if cfg.ckpt_dir:
+            if cfg.ckpt_dir and writes:
                 tree = _ckpt_tree(algo, epoch + 1, max(
                     best_monitor, monitor_val if monitor_val is not None else -math.inf), host)
                 if ((epoch + 1) % cfg.ckpt_every == 0 or epoch + 1 == cfg.epochs
@@ -205,6 +246,37 @@ class Trainer:
                 break
 
         return algo
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.algo.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._sync()
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, t0: float, steps: int) -> None:
+        """Close the trace of ``steps`` train steps: write it and log its
+        wall time and the device's busy time over it."""
+        from torch.autograd import DeviceType
+
+        self._sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        name = "trace.json" if self.mesh is None else f"trace_rank{self.mesh.rank}.json"
+        prof.export_chrome_trace(os.path.join(self.config.profile_dir, name))
+        # the device's kernels; an annotated region's row there (`Optimizer.step#...`)
+        # repeats its kernels' time
+        busy_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and not e.name.startswith("Optimizer."))
+        self.logger({"profile/steps": steps, "profile/wall_ms": wall_ms,
+                     "profile/device_busy_ms": busy_us / 1e3})
 
     def _pick_chunk(self, steps_per_epoch: int) -> int:
         """The largest divisor of ``steps_per_epoch`` up to the configured

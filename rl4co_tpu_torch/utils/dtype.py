@@ -14,12 +14,17 @@ them in bf16, so the two agree to bf16 rounding, not to f32's.
 
 Where two bf16 operands meet in the JAX package it computes in bf16: a
 module that holds such a site rounds its parameter for it in its own
-``round_parameters(dtype)`` (`TSPContext`: ``W_placeholder - 1.0``).
+``round_parameters(dtype)`` (`TSPContext`: ``W_placeholder - 1.0``), or, where
+the result itself is rounded (MatNet's mixer: ``bf16(p) - bf16(init)``, a
+bf16 result), computes it in `compute_dtype_in_force`, the dtype that
+`computing_in` sets around the rollout.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import contextvars
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -31,6 +36,24 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
         raise ValueError(f"compute_dtype={name!r} is not a floating torch dtype")
     return dtype
+
+
+_COMPUTE_DTYPE: contextvars.ContextVar = contextvars.ContextVar("compute_dtype", default=None)
+
+
+@contextlib.contextmanager
+def computing_in(dtype: Optional[torch.dtype]):
+    """Within the block `compute_dtype_in_force` gives ``dtype``."""
+    token = _COMPUTE_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.reset(token)
+
+
+def compute_dtype_in_force() -> Optional[torch.dtype]:
+    """The compute dtype of the rollout being run (None: f32)."""
+    return _COMPUTE_DTYPE.get()
 
 
 def round_through(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -23,8 +23,11 @@ Where the two libraries differ, the port keeps optax's arithmetic or says so:
 - **adagrad**: optax starts its accumulator at 0.1 with eps 1e-7; those are
   the defaults here. The same remark on eps applies.
 - **lamb**, **lion**, **adafactor**: `torch.optim` has no class for the first
-  two, and its Adafactor is another update rule than optax's; they raise
-  `NotImplementedError` until a test can hold them to optax (ROADMAP.md).
+  two, and its Adafactor is another update rule than optax's; `OptaxLamb`,
+  `OptaxLion` and `OptaxAdafactor` compute optax's updates, with its
+  defaults (Adafactor: the second moments of a matrix whose two largest
+  dimensions reach 128 factored into rows and columns, the update clipped to
+  block RMS 1 and scaled by the parameter's RMS).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -90,14 +94,149 @@ def _adamw(params, lr, weight_decay: float = 1e-4, **kwargs):
     return OptaxAdamW(params, lr=lr, weight_decay=weight_decay, **kwargs)
 
 
+def _bias_correction(decay: float, count: int, device) -> torch.Tensor:
+    """optax's ``1 - decay ** count`` in f32."""
+    return (1 - torch.tensor(decay, dtype=torch.float32)
+            ** torch.tensor(float(count), dtype=torch.float32)).to(device)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return x.square().sum().sqrt()
+
+
+class OptaxLamb(torch.optim.Optimizer):
+    """``optax.lamb``: Adam's bias-corrected step ``m_hat / (sqrt(v_hat) +
+    eps)``, plus ``weight_decay · p``, scaled by the trust ratio ``|p| / |u|``
+    (1 where either norm is 0), times ``-lr``."""
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st.update(count=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+                g = p.grad
+                st["count"] += 1
+                st["mu"] = g * (1 - b1) + st["mu"] * b1
+                st["nu"] = (g * g) * (1 - b2) + st["nu"] * b2
+                u = ((st["mu"] / _bias_correction(b1, st["count"], p.device))
+                     / ((st["nu"] / _bias_correction(b2, st["count"], p.device)).sqrt()
+                        + group["eps"]))
+                u = u + p * group["weight_decay"]
+                p_norm, u_norm = _norm(p), _norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+                p.add_(u * ratio * (-group["lr"]))
+
+
+class OptaxLion(torch.optim.Optimizer):
+    """``optax.lion``: ``sign((1 - b1) g + b1 m)``, plus ``weight_decay · p``,
+    times ``-lr``; then ``m ← (1 - b2) g + b2 m``."""
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                g = p.grad
+                u = torch.sign(g * (1 - b1) + st["mu"] * b1)
+                st["mu"] = g * (1 - b2) + st["mu"] * b2
+                p.add_((u + p * group["weight_decay"]) * (-group["lr"]))
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int):
+    """optax's choice: the two largest dimensions ``(d1, d0)`` if the smaller
+    of them reaches ``min_dim_size_to_factor``, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class OptaxAdafactor(torch.optim.Optimizer):
+    """``optax.adafactor`` with a learning rate and its defaults: the update
+    ``g / sqrt(v)`` with ``v`` decayed at ``1 - (t + 1) ** -decay_rate``,
+    factored into row and column means for a matrix of at least
+    ``min_dim_size_to_factor`` in its two largest dimensions; clipped to
+    block RMS ``clipping_threshold``; times ``lr`` and the parameter's RMS
+    (at least 1e-3); negated."""
+
+    def __init__(self, params, lr: float = 1e-3, min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, clipping_threshold: float = 1.0,
+                 eps: float = 1e-30):
+        super().__init__(params, dict(lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
+                                      decay_rate=decay_rate,
+                                      clipping_threshold=clipping_threshold, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+                if not st:
+                    st["count"] = 0
+                    if dims is None:
+                        st["v"] = torch.zeros_like(p)
+                    else:
+                        st["v_row"] = torch.zeros_like(p).mean(dim=dims[1])
+                        st["v_col"] = torch.zeros_like(p).mean(dim=dims[0])
+                t = torch.tensor(float(st["count"] + 1), dtype=torch.float32)
+                decay = (1.0 - t ** (-group["decay_rate"])).to(p.device)
+                g = p.grad
+                grad_sqr = g * g + group["eps"]
+                if dims is None:
+                    st["v"] = decay * st["v"] + (1.0 - decay) * grad_sqr
+                    u = g * st["v"] ** -0.5
+                else:
+                    d1, d0 = dims
+                    st["v_row"] = decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
+                    st["v_col"] = decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+                    row_factor = (st["v_row"] / row_col_mean) ** -0.5
+                    col_factor = st["v_col"] ** -0.5
+                    u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                st["count"] += 1
+                u = u / torch.clamp(u.square().mean().sqrt() / group["clipping_threshold"],
+                                    min=1.0)
+                u = u * group["lr"]
+                rms = p.square().mean().sqrt()
+                u = u * torch.where(rms <= 1e-3, 1e-3, rms)
+                p.add_(u * -1)
+
+
 OPTIMIZER_REGISTRY = {
     "adam": torch.optim.Adam,
     "adamw": _adamw,
     "sgd": torch.optim.SGD,
     "rmsprop": _rmsprop,
     "adagrad": _adagrad,
+    "lamb": OptaxLamb,
+    "lion": OptaxLion,
+    "adafactor": OptaxAdafactor,
 }
-NOT_PORTED = ("lamb", "lion", "adafactor")
 
 
 class Optimizer:
@@ -156,9 +295,6 @@ def get_optimizer(
     ``grad_clip`` puts clipping by global norm before the update.
     """
     key = name.lower().replace("_", "")
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer '{name}' is not ported yet (ROADMAP.md, Queue A)")
     if key not in OPTIMIZER_REGISTRY:
         raise ValueError(
             f"Unknown optimizer '{name}'. Available: {sorted(OPTIMIZER_REGISTRY)}")

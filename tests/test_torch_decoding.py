@@ -101,6 +101,41 @@ def test_sampling_is_reproducible_from_the_generator():
     assert torch.equal(a1, a2)
 
 
+def test_categorical_draw_is_the_inverse_cdf_at_one_uniform_per_row():
+    """The sampler draws one uniform per row from the generator and takes the
+    first action whose cumulative probability passes it: never an action of
+    probability 0, and the distribution's frequencies over many rows."""
+    p = torch.tensor([0.1, 0.0, 0.25, 0.05, 0.6])
+    rows = 40000
+    lp = p.log().expand(rows, -1)
+    action = tdec.categorical_draw(lp, torch.Generator().manual_seed(3))
+    u = torch.rand(rows, generator=torch.Generator().manual_seed(3))
+    cdf = p.cumsum(0)
+    want = (u[:, None] * cdf[-1] >= cdf).sum(dim=1)
+    assert torch.equal(action, want)
+    freq = np.bincount(t2n(action), minlength=5) / rows
+    sigma = np.sqrt(t2n(p) * (1 - t2n(p)) / rows)
+    assert freq[1] == 0
+    assert (np.abs(freq - t2n(p)) <= 4 * sigma + 1e-9).all(), (freq, p)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_categorical_draw_in_a_shard_keeps_the_ranks_rows_of_the_global_draw(rank):
+    """On a rank's share of a global batch (two repeat-major blocks of its 3
+    instances, of 2 ranks' 6), the draws are that rank's rows of the draws
+    that one process makes for the whole batch from the same generator."""
+    from rl4co_tpu_torch.parallel.mesh import Mesh, sharded
+
+    b, world, repeats = 3, 2, 2
+    logits, _ = logits_and_mask(4, b=repeats * b * world, a=7)
+    lp = torch.log_softmax(torch.from_numpy(logits), dim=-1)
+    whole = tdec.categorical_draw(lp, torch.Generator().manual_seed(9))
+    mine = lp.view(repeats, world, b, -1)[:, rank].reshape(repeats * b, -1)
+    with sharded(Mesh(rank=rank, world=world), b):
+        got = tdec.categorical_draw(mine, torch.Generator().manual_seed(9))
+    assert torch.equal(got, whole.view(repeats, world, b)[:, rank].reshape(-1))
+
+
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(kind="nonsense"), ValueError),
     (dict(multistart=True, num_samples=4), ValueError),

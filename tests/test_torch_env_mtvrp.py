@@ -254,9 +254,19 @@ def test_am_and_pomo_rollouts_match_jax():
         {k: np.concatenate([v] * N) for k, v in inst.items()}, t2n(got.actions))
 
 
-def test_solve_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 15"):
-        MTVRP(num_loc=5).solve({})
+def test_solve_dispatches_to_the_baselines():
+    """``MTVRP.solve`` runs the greedy baseline by default (its tours pass the
+    env's check), names an unknown solver, and reaches an external one that
+    is absent as ImportError."""
+    env = MTVRP(num_loc=5)
+    inst = env.generate(3, torch.Generator().manual_seed(0), device="cpu")
+    actions, cost = env.solve(inst, num_samples=2)
+    assert cost.shape == (3,) and bool((cost > 0).all())
+    env.check_solution_validity(inst, actions)
+    with pytest.raises(ValueError, match="Unknown solver"):
+        env.solve(inst, solver="nope")
+    with pytest.raises(ImportError):
+        env.solve(inst, solver="pyvrp")
 
 
 # ------------------------------------------------------------- golden files

@@ -10,7 +10,8 @@
   greedy rollouts: actions equal, rewards rtol 1e-5.
 - MatNet's POMO loss on JAX's sampled actions replayed: loss within 1e-5
   of its terms' scale (mean |advantage · log-likelihood|; the terms cancel),
-  every gradient within 1e-4 of the largest.
+  every gradient within 1e-4 of the largest; under bf16 compute the loss
+  likewise, with the mixer's shift held to JAX's bf16 bits.
 
 `python tests/test_torch_matnet.py` rewrites
 `rl4co_tpu_torch/golden/matnet_atsp50.npz` (MatNet at its published widths,
@@ -171,6 +172,49 @@ def test_pomo_loss_and_every_gradient_on_replayed_actions_match_jax():
     np.testing.assert_allclose(tm["reward"].item(), float(jm["reward"]), rtol=1e-5)
     tloss.backward()
     assert_gradients_close(talgo.policy, jgrads)
+
+
+def test_mixer_shift_under_bf16_has_the_jax_bits():
+    """C3: under a bf16 compute dtype the JAX package subtracts ``init`` from
+    the bf16-cast parameter in bf16 (``init``, a weakly typed float, is
+    rounded too, and so is the result); the port's four shifted mixer tensors
+    carry those bits, and the f32 shift is unchanged."""
+    import jax.numpy as jnp
+
+    from rl4co_tpu_torch.models.zoo.matnet import MIX1_INIT, MIX2_INIT, shifted
+    from rl4co_tpu_torch.utils.dtype import computing_in, round_through
+
+    tree = layer_tree(seed=3)["row_block"]
+    for name, init in (("mix_W1", MIX1_INIT), ("mix_b1", MIX1_INIT),
+                       ("mix_W2", MIX2_INIT), ("mix_b2", MIX2_INIT)):
+        leaf = np.asarray(tree[name], np.float32)
+        want = np.asarray((jnp.asarray(leaf).astype(jnp.bfloat16) - init).astype(jnp.float32))
+        p = round_through(torch.tensor(leaf), torch.bfloat16)
+        with computing_in(torch.bfloat16):
+            got = shifted(p, init)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+        np.testing.assert_array_equal(shifted(torch.tensor(leaf), init).numpy(), leaf - np.float32(init))
+
+
+def test_bf16_pomo_loss_on_replayed_actions_matches_jax():
+    """C3: MatNet's POMO loss under bf16 compute on JAX's sampled actions,
+    within 1e-5 of its terms' scale, and its reward rtol 1e-5; the
+    log-likelihoods within 1e-3 nats (1.8e-4 here; with the mixer shifted in
+    f32 they lay 2.9e-2 apart and the loss 7.2e-4 of its terms' scale)."""
+    jalgo, jparams, talgo = matnet_algos(seed=4)
+    spec = dict(kind="sampling", tanh_clipping=10.0, compute_dtype="bfloat16")
+    jalgo = JaxMatNet(jalgo.env, policy=jalgo.policy, train_spec=JaxSpec(**spec))
+    talgo = MatNet(talgo.env, policy=talgo.policy, train_spec=DecodeSpec(**spec))
+    inst = jax_instances(jax_get_env("atsp", num_loc=N), 6, B)
+    jloss, (jm, jout) = jalgo.loss(jparams, None, to_jax(inst), KEY)
+    with torch.no_grad():
+        tloss, (tm, tout) = talgo.loss(to_torch(inst), replay_actions=np.asarray(jout.actions))
+    np.testing.assert_allclose(t2n(tout.log_likelihood), np.asarray(jout.log_likelihood),
+                               rtol=0, atol=1e-3)
+    assert_loss_close(tloss.item(), jloss, reinforce_terms_scale(
+        jout.reward, jout.log_likelihood, group_axis_size=N))
+    np.testing.assert_allclose(tm["reward"].item(), float(jm["reward"]), rtol=1e-5)
 
 
 def test_golden_file_holds_its_shapes():

@@ -149,6 +149,3 @@ def test_unknown_names_raise():
         get_lr_schedule("nope")
     with pytest.raises(ValueError, match="total_steps"):
         get_lr_schedule("cosine", 1e-3)
-    for name in ("lamb", "lion", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_optimizer(p, name)

@@ -32,6 +32,7 @@ from rl4co_tpu_torch.envs import get_env
 from rl4co_tpu_torch.models.zoo.am import AttentionModel
 from rl4co_tpu_torch.rl import baselines as tbl
 from rl4co_tpu_torch.rl.reinforce import REINFORCE
+from rl4co_tpu_torch.trainer import Trainer, TrainerConfig
 
 from _torch_port import SMALL, policy_pair, random_locs, t2n, tree_to_numpy
 
@@ -220,10 +221,21 @@ def test_train_step_generates_from_the_reseeded_generator():
 
 
 def test_options_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        DecodeSpec(kind="sampling", remat=True)
-    with pytest.raises(TypeError):
-        REINFORCE(get_env("tsp", num_loc=6), policy_pair()[2], fused_rollout_baseline=True)
+    """Tensor and expert parallelism (a mesh's ``model`` axis) are not ported
+    (ROADMAP.md); the Trainer refuses a mesh for a loss with batch means of
+    its own (``data_parallel`` false)."""
+    from rl4co_tpu_torch.models.zoo.mdam import MDAM, MDAMPolicy
+    from rl4co_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
+        make_mesh(model=2)
+    algo = MDAM(get_env("tsp", num_loc=6), MDAMPolicy(device="cpu", embed_dim=16, num_heads=2,
+                                                      num_encoder_layers=1))
+    assert not algo.data_parallel
+    trainer = Trainer(algo, TrainerConfig(epochs=1, batch_size=4, train_data_size=8,
+                                          val_data_size=4), mesh=Mesh(rank=0, world=2))
+    with pytest.raises(ValueError, match="data-parallel"):
+        trainer.fit()
 
 
 def test_attention_model_defaults_are_the_published_recipe():

@@ -1,8 +1,10 @@
 """The port's training command line against the JAX package's
 (`rl4co_tpu/train.py`, `tests/test_train_cli.py`): the same model names,
 every name built and trained for one epoch at the JAX smoke test's sizes,
-every flag whose back end is not ported refused with its ROADMAP.md item, the JSONL log's records against the JAX command line's, a
-resumed run, and the mixed OP + PCTSP configuration end to end."""
+``--tensorboard``, ``--mlflow`` and ``--profile-dir`` writing their files
+beside the JAX command line's (the data-parallel flags are in
+`test_torch_dp.py`), the JSONL log's records against the JAX command line's,
+a resumed run, and the mixed OP + PCTSP configuration end to end."""
 
 import json
 
@@ -56,13 +58,89 @@ def test_build_seeds_the_policy():
     assert all(torch.equal(p, q) for p, q in zip(first.parameters(), second.parameters()))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tensorboard", "tb"], 15), (["--mlflow", "ml"], 15),
-    (["--dp", "2"], 15), (["--distributed"], 15)],
-    ids=["tensorboard", "mlflow", "dp", "distributed"])
-def test_unported_flags_raise_with_their_roadmap_item(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, item {item}"):
-        main(["--model", "am", *TINY, *flags])
+def test_back_end_flags_write_their_files(tmp_path):
+    """``--tensorboard``, ``--mlflow`` and ``--profile-dir`` in one CPU run
+    (two steps, the second profiled): the TensorBoard scalars of the logged
+    steps and epoch, the MLflow run (finished, a metrics file per numeric
+    metric, JAX's layout), the trace and its record."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    main(["--model", "am", *TINY, "--baseline", "mean", "--precision", "f32",
+          "--tensorboard", str(tmp_path / "tb"), "--mlflow", str(tmp_path / "mlruns"),
+          "--profile-dir", str(tmp_path / "prof"), "--profile-steps", "1"])
+    acc = EventAccumulator(str(tmp_path / "tb"))
+    acc.Reload()
+    tags = acc.Tags()["scalars"]
+    assert {"loss", "reward", "val/reward", "profile/device_busy_ms"} <= set(tags)
+    assert [s.step for s in acc.Scalars("loss")] == [0]
+    (run,) = [d for d in (tmp_path / "mlruns" / "0").iterdir() if d.is_dir()]
+    assert "status: 3" in (run / "meta.yaml").read_text()
+    assert (tmp_path / "mlruns" / "0" / "meta.yaml").exists()
+    assert {"loss", "val-reward", "profile-wall_ms"} <= {f.name for f in (run / "metrics").iterdir()}
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("flags,error", [(["--dp", "2"], "needs 2 cards"),
+                                         (["--distributed"], "RANK")],
+                         ids=["dp", "distributed"])
+def test_data_parallel_flags_need_their_ranks(flags, error, monkeypatch):
+    """``--dp 2`` on cuda raises with fewer than two cards (as the JAX
+    package's `make_mesh` asserts); ``--distributed`` needs the launcher's
+    ``RANK``."""
+    monkeypatch.delenv("RANK", raising=False)
+    argv = [a for a in ["--model", "am", *TINY] if a not in ("--device", "cpu")]
+    with pytest.raises((ValueError, KeyError, RuntimeError), match=error):
+        main([*argv, *flags])
+
+
+@pytest.mark.parametrize("flags,ranks", [([], 1), (["--dp", "1"], 1), (["--dp", "0"], 2)],
+                         ids=["default", "dp1", "dp0"])
+def test_dp_takes_every_card_only_when_asked(flags, ranks, monkeypatch):
+    """With two cards visible, ``--device cuda`` trains in one process unless
+    ``--dp 0`` asks for every card (the port's default is one process: most
+    of its algorithms do not train data-parallel). The training itself and
+    the rank processes are stubbed: what is held is the number of ranks."""
+    from rl4co_tpu_torch import train
+
+    class Started(Exception):
+        pass
+
+    def start(argv, dp, device):
+        raise Started(dp)
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(train, "_start_local_ranks", start)
+    monkeypatch.setattr(train, "_train", lambda args, mesh, device: (mesh, device))
+    argv = ["--model", "ppo", "--device", "cuda", *flags]
+    if ranks == 1:
+        assert train.main(argv) == (None, "cuda")
+    else:
+        with pytest.raises(Started) as got:
+            train.main(argv)
+        assert got.value.args == (ranks,)
+
+
+def test_dp_refuses_a_card_index(monkeypatch):
+    """``--dp`` puts rank r on card r, so a card named in ``--device`` is an
+    error rather than every rank on one card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="--device cuda, not cuda:1"):
+        main(["--model", "am", "--dp", "2", "--device", "cuda:1"])
+
+
+@pytest.mark.parametrize("model", ["ppo", "symnco"])
+def test_a_model_that_does_not_train_data_parallel_refuses_a_mesh(model):
+    """The Trainer takes a mesh only for an algorithm whose ``data_parallel``
+    is true: PPO (no such attribute of its own) and SymNCO (whose loss takes
+    batch means of its own) raise before a step."""
+    from rl4co_tpu_torch.parallel.mesh import Mesh
+
+    spec = WorkloadSpec(env_name="tsp", env_kwargs=(("num_loc", 6),), model=model,
+                        epochs=1, batch_size=4, train_data_size=8, val_data_size=4,
+                        device="cpu")
+    _, trainer = build(spec, mesh=Mesh(rank=0, world=1))
+    with pytest.raises(ValueError, match="does not train data-parallel"):
+        trainer.fit()
 
 
 @pytest.mark.parametrize("search", ["active_search", "eas-emb", "eas-lay"])
