@@ -55,7 +55,9 @@ infrastructure: AM trained on TSP-50 through the train CLI by two `--distributed
 ranks on the one card (gloo), held to the one-process run of the same command,
 with TensorBoard, MLflow and a profile; Reptile over POMO on TSP-20/50/100
 through the grouped kernel at L = N, every outer update recomputed; and remat
-and the fused rollout baseline on the AM checkpoint. Every phase prints one
+and the fused rollout baseline on the AM checkpoint. Then the port's 13
+examples (`rl4co_tpu_torch/examples/`) at their default sizes, each held to
+the pointer kernels its path launches. Every phase prints one
 JSON line; any failure is a traceback and a non-zero exit. Without a card it
 exits non-zero and prints no result. `check_kernels` and `time_kernels` also run alone, from a short
 script, while a kernel is being worked on.
@@ -4431,6 +4433,85 @@ def drive_remat_fused_am_tsp50(device, count=512):
             "launches_remat": remat_launches, "launches_fused": fused_launches}, remat_launches, fused_launches
 
 
+# the port's examples (`rl4co_tpu_torch/examples/`) and the pointer kernels
+# each launches at its default sizes: greedy decoding and single sampling run
+# K2; sampling with repeats (06's 16 samples), multistart, beam search and
+# the EAS rollouts run K1; L2D's pointer (an unmasked glimpse) and the
+# samplers reach none. A kernel not named must not launch.
+EXAMPLES = {
+    "01_quickstart": ("pointer_step_single",),
+    "02_full_training": ("pointer_step_single",),
+    "03_new_env_and_model": ("pointer_step_single",),
+    "04_decoding_strategies": ("pointer_step_single", "pointer_step_grouped"),
+    "05_transductive_search": ("pointer_step_single", "pointer_step_grouped"),
+    "06_tsplib_cvrplib": ("pointer_step_grouped",),
+    "07_local_search": ("pointer_step_single",),
+    "08_mtvrp": ("pointer_step_single",),
+    "09_scheduling": (),
+    "10_generator_distributions": (),
+    "11_meta_reptile": ("pointer_step_single",),
+    "12_multichip_dp": ("pointer_step_single",),
+    "13_canonical_datasets": ("pointer_step_single",),
+}
+EXAMPLES_DIR = os.path.join(ROOT, "rl4co_tpu_torch", "examples")
+
+
+def load_example(name):
+    """The example script ``name`` as a module, imported from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def numbers_in(tree):
+    """Every number in a returned tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in numbers_in(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in numbers_in(v)]
+    return [tree] if isinstance(tree, (int, float)) and not isinstance(tree, bool) else []
+
+
+def drive_examples(device, sizes=None, names=tuple(EXAMPLES)):
+    """Each example of ``names`` run by its ``main`` on ``device`` in this
+    process, at its default sizes (``sizes``: ``{name: kwargs}`` to shrink
+    some in a rehearsal): its wall seconds, the numbers it returns (those it
+    prints, all finite), the last lines it printed and its launches of each
+    pointer kernel, which must be those of `EXAMPLES`. Example 12's other
+    rank runs in a process of its own; the launches are rank 0's. Returns
+    the report and the launches by example."""
+    import contextlib
+    import io
+
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+
+    report, launches = {}, {}
+    for name in names:
+        kernels = EXAMPLES[name]
+        module = load_example(name)
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            numbers = module.main(device=str(device), **(sizes or {}).get(name, {}))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = dict(LAUNCHES)
+        for kernel, count in launches[name].items():
+            assert (count > 0) == (kernel in kernels), (name, launches[name])
+        values = numbers_in(numbers)
+        assert values and all(np.isfinite(values)), (name, numbers)
+        report[name] = {"seconds": seconds, "numbers": numbers,
+                        "printed": printed.getvalue().splitlines()[-10:],
+                        "launches": launches[name]}
+    return report, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4744,6 +4825,13 @@ def main() -> int:
     emit({"phase": "remat_fused_am_tsp50", "card": smi, **report})
     infra_seconds = time.perf_counter() - t_infra
 
+    # 17. the port's 13 examples at their default sizes, each through the
+    # pointer kernels its path reaches
+    t_examples = time.perf_counter()
+    report, example_launches = drive_examples(device)
+    emit({"phase": "examples", "card": smi, "examples": report})
+    examples_seconds = time.perf_counter() - t_examples
+
     by_path = {"evaluation": launches, "training": {
         name: train_launches[name] + grouped_launches[name] for name in launches}}
 
@@ -4849,6 +4937,8 @@ def main() -> int:
                                 "pointer_step_single")):
         assert counts[name] > 0, (path, counts)
         by_path[path] = counts
+    # the examples: their kernels held in `drive_examples`
+    by_path.update({f"examples_{name}": counts for name, counts in example_launches.items()})
     for name in MAIN_SHAPES:
         t = times[name]
         kernels.append({
@@ -4866,7 +4956,8 @@ def main() -> int:
           "routing_rest_and_glop_phases_seconds": glop_seconds,
           "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds,
           "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds,
-          "zoo_phases_seconds": zoo_seconds, "infrastructure_phases_seconds": infra_seconds})
+          "zoo_phases_seconds": zoo_seconds, "infrastructure_phases_seconds": infra_seconds,
+          "examples_phase_seconds": examples_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,9 @@ that: nothing here imports JAX) and returns a ``state_dict`` for
 - a Flax ``Dense`` ``kernel [in, out]`` becomes ``nn.Linear.weight``
   ``[out, in]`` (transposed); ``bias`` and a norm's ``scale``/``bias`` go as
   they are;
+- the attention modules' ``Dense`` layers keep their names, so the
+  cross-attention's ``Wq``, ``Wkv`` and ``out_proj`` fill
+  `models/nn/attention.py::MultiHeadCrossAttention` as they are;
 - a vmapped MoE's stacked expert ``kernel [E, in, out]`` (3-D) keeps its
   name and layout: `StackedDense` uses it as ``x @ kernel``;
 - ``pointer/project_out_kernel [D, D]`` (and its ``project_out_bias``) and

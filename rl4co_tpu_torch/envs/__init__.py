@@ -50,6 +50,11 @@ ENV_REGISTRY = {
 }
 
 
+def register_env(name: str, cls) -> None:
+    """Add ``cls`` to the registry under ``name`` (a user's own env)."""
+    ENV_REGISTRY[name] = cls
+
+
 def get_env(name: str, **kwargs) -> Env:
     """Instantiate an env by registry name."""
     cls = ENV_REGISTRY.get(name)

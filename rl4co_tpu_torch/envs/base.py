@@ -82,3 +82,32 @@ class Env:
 
     def check_solution_validity(self, instance, actions) -> None:
         raise NotImplementedError
+
+    # ---- classical-solver hook ----
+
+    def solve(self, instances: Instance, max_runtime: float = 10.0, **kwargs):
+        """Solve instances with a classical solver; returns (actions, cost).
+        Envs with baselines override this (e.g. MTVRP)."""
+        raise NotImplementedError(f"No classical solver for env {self.name!r}")
+
+    # ---- random-policy rollout ----
+
+    def rollout_random(self, batch_size: int,
+                       generator: Optional[torch.Generator] = None, device="cuda"):
+        """Generate ``batch_size`` instances and roll them out for ``max_steps``
+        steps with actions drawn uniformly among the feasible ones. Returns
+        ``(instances, state, actions [B, T], reward [B])``."""
+        from rl4co_tpu_torch.decoding import categorical_draw
+
+        instances = self.generate(batch_size, generator, device)
+        state = self.reset(instances)
+        actions = []
+        for _ in range(self.max_steps):
+            mask = self.action_mask(state)
+            logprobs = torch.log_softmax(
+                torch.where(mask, 0.0, float("-inf")), dim=-1)
+            action = categorical_draw(logprobs, generator)
+            state = self.step(state, action)
+            actions.append(action)
+        actions = torch.stack(actions, dim=1)
+        return instances, state, actions, self.reward(state, actions)

@@ -78,6 +78,30 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(_merge_heads(out))
 
 
+class MultiHeadCrossAttention(nn.Module):
+    """Cross-attention MHA: queries from ``q_input`` through ``Wq`` [D -> D],
+    keys and values from ``kv_input`` through ``Wkv`` [D -> 2D] (split in
+    that order), and ``out_proj``; no bias unless ``use_bias=True``. A
+    ``[B, S]`` mask (one fewer axis than ``q_input``) is a key-padding mask
+    for every head and query; any other broadcasts to ``[B, H, L, S]``."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 8, use_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.Wq = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.Wkv = nn.Linear(embed_dim, 2 * embed_dim, bias=use_bias)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+
+    def forward(self, q_input: torch.Tensor, kv_input: torch.Tensor,
+                cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q = _split_heads(self.Wq(q_input), self.num_heads)
+        k, v = (_split_heads(t, self.num_heads) for t in self.Wkv(kv_input).chunk(2, dim=-1))
+        if cross_mask is not None and cross_mask.ndim == q_input.ndim - 1:
+            cross_mask = cross_mask[..., None, None, :]
+        out = scaled_dot_product_attention(q, k, v, cross_mask)
+        return self.out_proj(_merge_heads(out))
+
+
 def pointer_logits(
     query: torch.Tensor,      # [B, L, D] L context queries per instance
     glimpse_k: torch.Tensor,  # [B, N, D]

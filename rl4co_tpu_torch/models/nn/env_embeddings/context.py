@@ -116,8 +116,7 @@ class VRPTWContext(nn.Module):
 
 
 class PDPContext(nn.Module):
-    """current node embedding alone (PDP's, and SVRP's: the JAX package's
-    `SVRPContext` is the same module)."""
+    """current node embedding alone (PDP's)."""
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -125,6 +124,10 @@ class PDPContext(nn.Module):
 
     def forward(self, embeddings: torch.Tensor, state) -> torch.Tensor:
         return self.project_context(gather_rows(embeddings, state.current_node))
+
+
+class SVRPContext(PDPContext):
+    """current node embedding alone (SVRP's; the same module as PDP's)."""
 
 
 class MTSPContext(nn.Module):
@@ -265,7 +268,7 @@ CONTEXT_EMBEDDING_REGISTRY = {
     "cvrp": VRPContext,
     "cvrpmvc": VRPContext,
     "sdvrp": VRPContext,
-    "svrp": PDPContext,
+    "svrp": SVRPContext,
     "mpdp": MPDPContext,
     "mdcpdp": MDCPDPContext,
     "cvrptw": VRPTWContext,

@@ -1,0 +1,4 @@
+from rl4co_tpu_torch.models.nn.graph.attnnet import (  # noqa: F401
+    GraphAttentionNetwork,
+    MultiHeadAttentionLayer,
+)

@@ -144,3 +144,17 @@ class PositionalEncoding(nn.Module):
         if positions is None:
             return x + pe[: x.shape[-2]]
         return x + pe[positions.long()]
+
+
+class RandomEncoding(nn.Module):
+    """Random node features: uniform in [0, 1) of shape ``x.shape[:-1] +
+    (embed_dim,)`` and ``x``'s dtype, drawn from ``generator``."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.embed_dim = embed_dim
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return torch.rand(*x.shape[:-1], self.embed_dim, generator=generator,
+                          dtype=x.dtype, device=x.device)

@@ -92,6 +92,29 @@ class PositionalEmbedding(nn.Module):
         return self._tables[key][vt % n]
 
 
+class AbsolutePositionalEmbedding(PositionalEmbedding):
+    """The absolute (sinusoidal) pattern."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__("APE", embed_dim)
+
+
+class CyclicPositionalEmbedding(PositionalEmbedding):
+    """The cyclic pattern."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__("CPE", embed_dim)
+
+
+POS_EMBEDDING_REGISTRY = {
+    "APE": AbsolutePositionalEmbedding,
+    "CPE": CyclicPositionalEmbedding,
+}
+
+
 def pos_init_embedding(pos_type: str, embed_dim: int) -> PositionalEmbedding:
     """``"APE"`` (absolute) or ``"CPE"`` (cyclic)."""
-    return PositionalEmbedding(pos_type, embed_dim)
+    cls = POS_EMBEDDING_REGISTRY.get(pos_type)
+    if cls is None:
+        raise ValueError(f"Unknown pos embedding {pos_type}")
+    return cls(embed_dim)

@@ -65,6 +65,11 @@ def xla_cpu_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def get_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance between points, over the last axis."""
+    return torch.linalg.vector_norm(a - b, dim=-1)
+
+
 def get_distance_matrix(locs: torch.Tensor) -> torch.Tensor:
     """Pairwise Euclidean distances ``[..., N, N]`` of ``locs [..., N, 2]``."""
     return torch.linalg.vector_norm(locs[..., :, None, :] - locs[..., None, :, :], dim=-1)
@@ -74,6 +79,12 @@ def get_tour_length(ordered_locs: torch.Tensor) -> torch.Tensor:
     """Closed-tour length of locations in visiting order, incl. return arc.
     Works on ``[N, 2]`` or ``[..., N, 2]``."""
     diffs = ordered_locs - torch.roll(ordered_locs, shifts=1, dims=-2)
+    return torch.linalg.vector_norm(diffs, dim=-1).sum(dim=-1)
+
+
+def get_open_tour_length(ordered_locs: torch.Tensor) -> torch.Tensor:
+    """Path length of locations in visiting order (no return arc)."""
+    diffs = ordered_locs[..., 1:, :] - ordered_locs[..., :-1, :]
     return torch.linalg.vector_norm(diffs, dim=-1).sum(dim=-1)
 
 
@@ -100,6 +111,21 @@ def unbatchify(x, repeats: int):
         return a.reshape(repeats, b, *a.shape[1:]).transpose(0, 1)
 
     return tree_map(_one, x)
+
+
+def calculate_entropy(logprobs: torch.Tensor) -> torch.Tensor:
+    """Entropy of categorical distributions from log-probabilities over the
+    last axis; a term of probability 0 counts 0 (no NaN from ``-inf``)."""
+    probs = logprobs.exp()
+    terms = torch.where(probs > 0, probs * logprobs, torch.zeros_like(logprobs))
+    return -terms.sum(dim=-1)
+
+
+def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """True where an entry is at least the k-th largest on the last axis
+    (ties with the k-th are kept)."""
+    kth = torch.sort(scores, dim=-1).values[..., -k, None]
+    return scores >= kth
 
 
 def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
