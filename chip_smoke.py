@@ -90,6 +90,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RTOL, ATOL = 2e-4, 2e-5          # kernel vs plain version, f32 on both sides
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS = 67e12                # H100 SXM f32 rate outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 rate of the tensor cores
 KERNEL_SOURCE = "rl4co_tpu_torch/csrc/pointer_kernel.cu"
 REPLACES = {
     "pointer_step_single": "rl4co_tpu/ops/pointer_kernel.py:219",
@@ -326,6 +327,16 @@ def bound_ms(b, l, n, d):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tc_bound_ms(b, l, n, d):
+    """Least time for the grouped step on the tensor cores, as K1 computes it:
+    bytes moved once over the memory rate against its operations, taken in
+    three TF32 passes (the 3xTF32 split), over the TF32 rate."""
+    nbytes = 4 * (3 * b * n * d + b * l * d + 2 * b * l * n + d * d)
+    flops = 3 * b * l * (6 * n * d + 2 * d * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def time_ms(fn, warmup=20, iters=100):
     """Device time of one call: ``iters`` calls are captured into one CUDA
     graph and the replay is timed by CUDA events, so the host's time to
@@ -403,7 +414,8 @@ def check_kernels(device, cases=CASES, seed=0):
 
 def time_kernels(device, seed=1, shapes=None):
     """Device times of kernel and plain version at ``shapes`` ([(kernel,
-    (B, L, N, D, H))], by default the main path's), beside the bound."""
+    (B, L, N, D, H))], by default the main path's), beside the bound (and,
+    for the grouped kernel, the bound on the tensor cores)."""
     from rl4co_tpu_torch.ops.pointer_kernel import (
         fused_pointer_logits,
         pointer_logits_plain,
@@ -428,6 +440,8 @@ def time_kernels(device, seed=1, shapes=None):
             "host_enqueue_us": host_us(lambda: fused_pointer_logits(*args)),
             "plain_host_enqueue_us": host_us(lambda: pointer_logits_plain(*args)),
         })
+        if l is not None:
+            times[-1]["tc_bound_ms"], times[-1]["tc_bound_by"] = tc_bound_ms(b, l, n, d)
     return times
 
 
@@ -4949,6 +4963,7 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "cases": stats[name]["cases"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            **{key: t[key] for key in ("tc_bound_ms", "tc_bound_by") if key in t},
             "library_ms": None, "shape": t["shape"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -10,12 +10,14 @@
 // Two kernels, one launch per decode step each:
 //   pointer_step_single   q [B, D],    bias [B, N]    -> out [B, N]
 //   pointer_step_grouped  q [B, L, D], bias [B, L, N] -> out [B, L, N]
-// K, V, LK are [B, N, D], W is [D, D]; everything is contiguous f32 and all
-// arithmetic is f32 on the CUDA cores. Both walk the nodes in tiles with an
-// online softmax (a running max and sum per row), so no buffer grows with N
-// and any N runs. Scores, weights, glimpse and projection live in shared
-// memory and registers only: device memory sees the inputs once per block
-// and the logits once.
+// K, V, LK are [B, N, D], W is [D, D]; everything is contiguous f32. The
+// single kernel's arithmetic is f32 on the CUDA cores; the grouped kernel
+// takes its products on the tensor cores, in three TF32 passes that keep
+// f32's precision, wherever the head width allows (else on the CUDA cores).
+// Both walk the nodes in tiles with an online softmax (a running max and sum
+// per row), so no buffer grows with N and any N runs. Scores, weights,
+// glimpse and projection live in shared memory and registers only: device
+// memory sees the inputs once per block and the logits once.
 //
 // Plain C interface (no PyTorch headers): raw device pointers, sizes, the
 // stream. Each entry point returns cudaGetLastError() after its launch.
@@ -204,6 +206,43 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Tensor-core products in f32 precision: `mma.sync` m16n8k8 on TF32 operands
+// with the 3xTF32 split. An f32 value x is hi + lo, hi = tf32(x) and
+// lo = tf32(x - hi), both rounded as `cvt.rna.tf32.f32` rounds a finite
+// value: to nearest with ties away from zero, which is the bits plus 0x1000
+// with the low 13 bits dropped. The split does that in integer arithmetic
+// (`cvt.rna` costs a test for inf and NaN besides, and no operand here is
+// either); lo keeps its low 13 bits, which the tensor cores do not read. A
+// product a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi,
+// the two small terms first, into f32 accumulators. One TF32 pass keeps 11
+// bits of each operand and misses the kernels' tolerance 16-60 times over
+// (tests/test_torch_pointer_tf32_split.py); three passes stay within a few
+// percent of it. Fragments of m16n8k8 (g = lane / 4,
+// t = lane % 4): A (16 x 8, row-major) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g); C (16 x 8)
+// c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,8 +558,9 @@ pointer_step_single_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// Grouped queries. Replaces `_pallas_forward` / `_kernel` of
-// rl4co_tpu/ops/pointer_kernel.py; at L = 50 it is bound by operations.
+// Grouped queries on the CUDA cores: the kernel K1 runs for head widths the
+// tensor-core kernel below does not take (D / H not 8, 16 or 32, or D above
+// kMmaMaxD; e.g. D 20 with 2 heads). At L = 50 it is bound by operations.
 // One block per (instance, tile of kTileL queries), three blocks per SM.
 // The nodes are walked in tiles of kGroupedTileN: for each tile, its K rows
 // are staged in shared memory and scored, each (query, head) row updates a
@@ -545,7 +585,8 @@ pointer_step_single_kernel(const float* __restrict__ q, const float* __restrict_
 //
 // Measured on an H100 (PERF.md), the arithmetic phases and not the staging
 // bind this kernel: with nothing staged it kept 85 % of its time before the
-// register tiles below, and keeps 71 % with them. So the
+// register tiles below, and kept 71 % with them (NVIDIA H100 80GB HBM3,
+// 700 W). So the
 // scores and logits phases hold register tiles of queries x nodes: a thread
 // scores kSubL queries against kScoreNodes nodes of one head (each chunk of
 // K feeds kSubL queries, each chunk of q kScoreNodes nodes) and takes the
@@ -794,6 +835,412 @@ pointer_step_grouped_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// Grouped queries on the tensor cores. Replaces `_pallas_forward` / `_kernel`
+// of rl4co_tpu/ops/pointer_kernel.py wherever the head width HD is 8, 16 or
+// 32 and D <= kMmaMaxD (every grouped shape the port's models launch).
+//
+// What binds it. At L = 50 the step does about 50 f32 operations per byte
+// moved. The kernel before this one did them on the CUDA cores and was
+// bound by them (7x its f32 bound on an NVIDIA H100 80GB HBM3 at 700 W);
+// this one takes its four products on the tensor cores, `mma.sync` m16n8k8
+// with the 3xTF32 split above, and what binds it now is the rest: the
+// splits, the softmax, the fragments' loads from shared memory and the
+// staging, which no phase overlaps (PERF.md).
+//
+// One block per (instance, tile of R = 16 MT queries). Each 16 queries are
+// the 16 rows of an m16 tile (an m-tile), so every product is a row of m16
+// tiles:
+//   scores   q_h [16, HD] . K_h,tile^T   per (head, m-tile), n8 tiles of nodes
+//   glimpse  P_h [16, TN] . V_h,tile     per (head, m-tile), k8 steps of nodes
+//   proj     g [16, D]    . W [D, D]     per m-tile, n8 tiles of W's columns
+//   logits   proj [16, D] . LK_tile^T    per m-tile, n8 tiles of nodes
+// - A warp owns whole (head, m-tile) pairs, so the online softmax runs on
+//   the score accumulators in registers, with a shuffle over the four lanes
+//   of a row, and the weights feed the glimpse product without passing
+//   through shared memory: the accumulator holds row g's nodes 2t and 2t + 1
+//   where the A operand wants its columns t and t + 4, so the k8 step takes
+//   its nodes in the order 0 2 4 6 1 3 5 7 and reads V's rows in that order
+//   (the sum over nodes does not depend on it). Only one __syncthreads per
+//   node tile stands between the warps in that phase.
+// - In the projection and the logits warp w takes m-tile w % MT and every
+//   (NW / MT)-th n8 tile from w / MT, so it reads one m-tile's A fragments.
+// - MT is chosen per launch (grouped_mma_tiles): L = 50 fills four m-tiles,
+//   and a block of four stages K, V and LK and reads W once per instance
+//   instead of four times; it runs 16 warps (one block per SM by registers)
+//   and holds W in shared memory, copied while the first node tile is
+//   computed. MT = 1 and 2 run 8 warps, two blocks per SM, and read W from
+//   L2. Past one node tile MT is 1, and smaller MT keeps the SMs full at
+//   small B.
+// - A operands live in shared memory already split (hi and lo planes), rows
+//   DP = D + 4 floats apart, so that a fragment's 32 loads hit 32 banks: the
+//   queries, then in each (head, m-tile)'s place its glimpse, then the
+//   projection. B operands are split as they are read: K, V and LK from
+//   their tiles (rows DP apart: node g, column t is bank 4g + t, and V's
+//   rows 2t and 2t + 1 at column g are banks 8t + g and 8t + 4 + g), W from
+//   its copy (rows D + 8 apart: bank 8t + g) or from global memory.
+// - Tiles of K and V land together in two buffers by `cp.async`, with the
+//   tile's bias (-inf past the tile's nodes, so no mask is tested); the
+//   first while the queries are split. LK's tiles alternate between the
+//   buffers, the next in flight while one is used, the first during the
+//   projection. Between node tiles (N > TN) each row's running max and sum
+//   per head and its glimpse accumulators wait in shared memory.
+// Shared memory (floats), TN = min(kGroupedTileN, N), TB = TN rounded up to
+// 8: K [TN*DP], V [TN*DP], A planes [R*DP] x 2, bias [R*TB]; W [D*(D+8)] if
+// MT = 4; past one node tile the glimpse accumulators [R*DP] and the running
+// max and sum [R*H] each.
+// ---------------------------------------------------------------------------
+constexpr int kMmaMaxD = 256;                       // the projection: D / 8 n8 tiles
+constexpr int kMaxNodeTiles8 = kGroupedTileN / 8;  // n8 tiles in a node tile
+constexpr int kMmaMaxRegs = 128;    // registers per thread: 2 blocks of 256 threads per SM
+
+__host__ __device__ constexpr int mma_threads(int MT) { return MT >= 4 ? 512 : 256; }
+__host__ __device__ constexpr int mma_min_blocks(int MT) {
+  return 65536 / (kMmaMaxRegs * mma_threads(MT));
+}
+
+__host__ __device__ __forceinline__ int grouped_mma_smem_floats(int N, int D, int H, int MT) {
+  const int tn = grouped_tile_nodes(N), dp = D + 4, rows = kTileL * MT;
+  return 2 * tn * dp + 2 * rows * dp + rows * ((tn + 7) & ~7) + (MT == 4 ? D * (D + 8) : 0) +
+         (N > tn ? rows * dp + 2 * rows * H : 0);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage_rows_async(float* dst, const float* __restrict__ src,
+                                                 int rows, int D, int tid) {
+  const int DP = D + 4;
+  for (int i = tid * 4; i < rows * D; i += NT * 4) {
+    const int n = i / D;
+    cp_async<4>(dst + n * DP + (i - n * D), src + i);
+  }
+}
+
+// A fragment of columns k0..k0+7 of 16 rows kept split, rows P floats apart
+__device__ __forceinline__ void load_a_split(const float* hi, const float* lo, int P, int k0,
+                                             int g, int t, uint32_t (&a_hi)[4],
+                                             uint32_t (&a_lo)[4]) {
+  const int o0 = g * P + k0 + t, o1 = o0 + 8 * P;
+  a_hi[0] = __float_as_uint(hi[o0]);
+  a_hi[1] = __float_as_uint(hi[o1]);
+  a_hi[2] = __float_as_uint(hi[o0 + 4]);
+  a_hi[3] = __float_as_uint(hi[o1 + 4]);
+  a_lo[0] = __float_as_uint(lo[o0]);
+  a_lo[1] = __float_as_uint(lo[o1]);
+  a_lo[2] = __float_as_uint(lo[o0 + 4]);
+  a_lo[3] = __float_as_uint(lo[o1 + 4]);
+}
+
+// x split into the hi and lo planes at offset i
+__device__ __forceinline__ void store_split(float* hi, float* lo, int i, float x) {
+  uint32_t h, l;
+  split_tf32(x, h, l);
+  hi[i] = __uint_as_float(h);
+  lo[i] = __uint_as_float(l);
+}
+
+__device__ __forceinline__ void split_b(float b0, float b1, uint32_t (&b_hi)[2],
+                                        uint32_t (&b_lo)[2]) {
+  split_tf32(b0, b_hi[0], b_lo[0]);
+  split_tf32(b1, b_hi[1], b_lo[1]);
+}
+
+template <int HD, int MT>
+__global__ void __launch_bounds__(mma_threads(MT), mma_min_blocks(MT))
+pointer_step_grouped_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ lk,
+                                const float* __restrict__ bias, const float* __restrict__ w,
+                                float* __restrict__ out, int L, int N, int D, int H) {
+  constexpr int NT = mma_threads(MT);
+  constexpr int NW = NT / 32;
+  constexpr int R = kTileL * MT;  // query rows of the block
+  constexpr int KS = HD / 8;      // k8 steps of a head's scores, n8 tiles of its glimpse
+  constexpr bool WS = MT == 4;    // W in shared memory
+  extern __shared__ __align__(16) float smem_mma[];
+  const int DP = D + 4;
+  const int TN = grouped_tile_nodes(N);
+  const int TB = (TN + 7) & ~7;    // the bias tile's rows: whole n8 tiles
+  float* kbuf = smem_mma;          // [TN*DP] a tile of K, later of LK
+  float* vbuf = kbuf + TN * DP;    // [TN*DP] a tile of V, later of LK
+  float* a_hi = vbuf + TN * DP;    // [R*DP] queries, glimpse, projection: hi
+  float* a_lo = a_hi + R * DP;     // [R*DP] ... and lo
+  float* b_s = a_lo + R * DP;      // [R*TB] the tile's bias, -inf past its nodes
+  float* w_s = b_s + R * TB;       // [D*(D+8)] W, rows D + 8 apart (MT = 4)
+  float* o_s = w_s + (WS ? D * (D + 8) : 0);  // [R*DP] glimpse accumulators between tiles
+  float* m_s = o_s + R * DP;       // [R*H] running max between tiles
+  float* l_s = m_s + R * H;        // [R*H] running sum between tiles
+
+  const int b = blockIdx.x;
+  const int l0 = blockIdx.y * R;
+  const int nl = min(R, L - l0);  // queries of this block that exist
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = (size_t)b * N;
+  const size_t qrow0 = (size_t)b * L + l0;
+  const float* bias_b = bias + qrow0 * N;
+  float* out_b = out + qrow0 * N;
+
+  // a node tile of K and V, and its bias: rows past the last query 0, nodes
+  // past the tile -inf, so that they take no part in any softmax
+  const auto stage_tile = [&](int n0, int nt) {
+    stage_rows_async<NT>(kbuf, k + (row0 + n0) * D, nt, D, tid);
+    stage_rows_async<NT>(vbuf, v + (row0 + n0) * D, nt, D, tid);
+    const int nb = (nt + 7) & ~7;
+    for (int i = tid; i < R * nb; i += NT) {
+      const int r = i / nb, c = i - r * nb;
+      if (r < nl && c < nt)
+        cp_async<1>(b_s + r * TB + c, bias_b + (size_t)r * N + n0 + c);
+      else
+        b_s[r * TB + c] = c < nt ? 0.f : -INFINITY;
+    }
+    cp_async_commit();
+  };
+  stage_tile(0, min(TN, N));
+  if (WS) {  // W, once, in flight while the first node tile is computed
+    for (int i = tid * 4; i < D * D; i += NT * 4) {
+      const int r = i / D;
+      cp_async<4>(w_s + r * (D + 8) + (i - r * D), w + i);
+    }
+    cp_async_commit();
+  }
+
+  // queries of the block, split, while the first tile lands; rows past the
+  // ragged edge are zero
+  for (int i = tid * 4; i < R * D; i += NT * 4) {
+    const int r = i / D, c = i - r * D;
+    const Chunk<4> x = r < nl ? load_chunk<4>(q + qrow0 * D + i) : Chunk<4>{{0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store_split(a_hi, a_lo, r * DP + c + e, x.v[e]);
+  }
+
+  const float scale = 1.f / sqrtf((float)HD);
+  for (int n0 = 0; n0 < N; n0 += TN) {
+    const int nt = min(TN, N - n0);  // nodes of this tile; none past N is read
+    const int nt8 = (nt + 7) >> 3;
+    const bool first = n0 == 0;
+    const bool last = n0 + TN >= N;
+    if (!first) {
+      __syncthreads();  // every warp is done with the previous tile
+      stage_tile(n0, nt);
+    }
+    if (WS && first)
+      cp_async_wait<1>();  // the tile, not W
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+
+    // (head, m-tile) pairs; the m-tiles of a head first, so a warp's pairs
+    // share its head where NW is a multiple of H
+    for (int item = warp; item < H * MT; item += NW) {
+      const int h = item % H, mt = item / H;
+      if (mt * kTileL >= nl) continue;  // an m-tile wholly past the last query
+      const int c0 = h * HD;
+      const int rb = mt * kTileL;  // the m-tile's first row
+      uint32_t q_hi[KS][4], q_lo[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        load_a_split(a_hi + rb * DP, a_lo + rb * DP, DP, c0 + ks * 8, g, t, q_hi[ks], q_lo[ks]);
+
+      // scores of the head, n8 tile j: rows g and g + 8, nodes 8j + 2t and
+      // 8j + 2t + 1; a node past the tile reads the tile's last row
+      float s[kMaxNodeTiles8][4];
+#pragma unroll
+      for (int j = 0; j < kMaxNodeTiles8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        if (j < nt8) {
+          const float* kr = kbuf + min(j * 8 + g, nt - 1) * DP + c0 + t;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            uint32_t b_hi[2], b_lo[2];
+            split_b(kr[ks * 8], kr[ks * 8 + 4], b_hi, b_lo);
+            mma_3xtf32(s[j], q_hi[ks], q_lo[ks], b_hi, b_lo);
+          }
+        }
+      }
+
+      // online softmax on the accumulators: element e is row g + 8 (e / 2),
+      // node 8j + 2t + e % 2; nodes past the tile have a bias of -inf
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kMaxNodeTiles8; ++j) {
+        if (j >= nt8) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 bv =
+              *reinterpret_cast<const float2*>(b_s + (rb + g + 8 * i) * TB + j * 8 + 2 * t);
+          s[j][2 * i] = s[j][2 * i] * scale + bv.x;
+          s[j][2 * i + 1] = s[j][2 * i + 1] * scale + bv.y;
+          mx[i] = fmaxf(mx[i], fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+        }
+      }
+      float m_new[2], alpha[2], sum[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // m_new is finite: a masked score is -1e9, not -inf; on the first
+        // tile there is nothing to rescale and no exp(-inf - (-inf)) is taken
+        const float m_old = first ? -INFINITY : m_s[(rb + g + 8 * i) * H + h];
+        m_new[i] = fmaxf(m_old, mx[i]);
+        alpha[i] = first ? 0.f : expf(m_old - m_new[i]);
+        sum[i] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxNodeTiles8; ++j)
+        if (j < nt8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = expf(s[j][e] - m_new[e >> 1]);
+            sum[e >> 1] += s[j][e];
+          }
+      float l_new[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l_new[i] = (first ? 0.f : l_s[(rb + g + 8 * i) * H + h] * alpha[i]) + sum[i];
+      }
+
+      // glimpse: o [16, HD] += P [16, nt] . V_h [nt, HD], the earlier tiles'
+      // sum rescaled to the new running max
+      float o[KS][4];
+#pragma unroll
+      for (int nj = 0; nj < KS; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[nj][e] = first ? 0.f
+                           : o_s[(rb + g + (e >> 1) * 8) * DP + c0 + nj * 8 + 2 * t + (e & 1)] *
+                                 alpha[e >> 1];
+#pragma unroll
+      for (int j = 0; j < kMaxNodeTiles8; ++j) {
+        if (j >= nt8) continue;
+        uint32_t p_hi[4], p_lo[4];  // A columns t, t + 4: nodes 8j + 2t, 8j + 2t + 1
+        split_tf32(s[j][0], p_hi[0], p_lo[0]);
+        split_tf32(s[j][2], p_hi[1], p_lo[1]);
+        split_tf32(s[j][1], p_hi[2], p_lo[2]);
+        split_tf32(s[j][3], p_hi[3], p_lo[3]);
+        const float* v0 = vbuf + min(j * 8 + 2 * t, nt - 1) * DP + c0 + g;
+        const float* v1 = vbuf + min(j * 8 + 2 * t + 1, nt - 1) * DP + c0 + g;
+#pragma unroll
+        for (int nj = 0; nj < KS; ++nj) {
+          uint32_t b_hi[2], b_lo[2];
+          split_b(v0[nj * 8], v1[nj * 8], b_hi, b_lo);
+          mma_3xtf32(o[nj], p_hi, p_lo, b_hi, b_lo);
+        }
+      }
+
+      __syncwarp();  // every lane has read the running max and sum
+      const float inv_l[2] = {1.f / l_new[0], 1.f / l_new[1]};
+#pragma unroll
+      for (int nj = 0; nj < KS; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = (rb + g + (e >> 1) * 8) * DP + c0 + nj * 8 + 2 * t + (e & 1);
+          // after the last tile the sum over the running sum is the glimpse,
+          // written split over the pair's queries, which no other warp reads
+          if (last)
+            store_split(a_hi, a_lo, idx, o[nj][e] * inv_l[e >> 1]);
+          else
+            o_s[idx] = o[nj][e];
+        }
+      if (!last && t == 0)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_s[(rb + g + 8 * i) * H + h] = m_new[i];
+          l_s[(rb + g + 8 * i) * H + h] = l_new[i];
+        }
+    }
+  }
+  __syncthreads();  // the glimpse is whole; both buffers are free
+
+  stage_rows_async<NT>(kbuf, lk + row0 * D, TN, D, tid);  // the first tile of LK
+  cp_async_commit();
+  if (WS) {
+    cp_async_wait<1>();  // W, not the tile of LK
+    __syncthreads();
+  }
+
+  // projection: warp w takes m-tile w % MT and W's n8 tiles w / MT,
+  // w / MT + NW / MT, ... (PT at most), so each warp reads one m-tile's A
+  // fragments, each once for its n8 tiles; m-tiles wholly past the last
+  // query are skipped. The sums wait in registers until every warp has read
+  // the glimpse, then go split over it.
+  constexpr int NS = NW / MT;  // warps that share an m-tile
+  constexpr int PT = kMmaMaxD / 8 / NS;
+  const int mts = (nl + kTileL - 1) / kTileL;
+  const int pm = warp % MT, pj = warp / MT;
+  float acc[PT][4];
+#pragma unroll
+  for (int u = 0; u < PT; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
+  if (pm < mts) {
+    const float* w0 = w + (size_t)t * D + pj * 8 + g;
+    const float* ws0 = w_s + t * (D + 8) + pj * 8 + g;
+#pragma unroll 2
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a_split(a_hi + pm * kTileL * DP, a_lo + pm * kTileL * DP, DP, k0, g, t, ah, al);
+#pragma unroll
+      for (int u = 0; u < PT; ++u) {
+        if ((pj + u * NS) * 8 >= D) continue;
+        uint32_t b_hi[2], b_lo[2];
+        if (WS)
+          split_b(ws0[k0 * (D + 8) + u * NS * 8], ws0[(k0 + 4) * (D + 8) + u * NS * 8], b_hi,
+                  b_lo);
+        else
+          split_b(__ldg(w0 + (size_t)k0 * D + u * NS * 8),
+                  __ldg(w0 + (size_t)(k0 + 4) * D + u * NS * 8), b_hi, b_lo);
+        mma_3xtf32(acc[u], ah, al, b_hi, b_lo);
+      }
+    }
+  }
+  __syncthreads();  // every warp has read the glimpse
+#pragma unroll
+  for (int u = 0; u < PT; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (pm < mts && (pj + u * NS) * 8 < D)
+        store_split(a_hi, a_lo,
+                    (pm * kTileL + g + (e >> 1) * 8) * DP + (pj + u * NS) * 8 + 2 * t + (e & 1),
+                    acc[u][e]);
+
+  // logits, tile by tile of LK
+  const float oscale = 1.f / sqrtf((float)D);
+  for (int ti = 0, n0 = 0; n0 < N; ++ti, n0 += TN) {
+    const int nt = min(TN, N - n0);
+    cp_async_wait<0>();
+    __syncthreads();  // tile ti has landed, the projection is whole; every
+                      // warp is done with tile ti - 1
+    const float* cur = (ti & 1) ? vbuf : kbuf;
+    if (n0 + TN < N) {  // the next tile, into the buffer tile ti - 1 used
+      stage_rows_async<NT>((ti & 1) ? kbuf : vbuf, lk + (row0 + n0 + TN) * D,
+                           min(TN, N - n0 - TN), D, tid);
+      cp_async_commit();
+    }
+    // warp w takes m-tile w % MT and the tile's n8 tiles w / MT, w / MT +
+    // NW / MT, ...
+    for (int jt = pj; jt < (nt + 7) >> 3 && pm < mts; jt += NS) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* lr = cur + min(jt * 8 + g, nt - 1) * DP + t;
+#pragma unroll 2
+      for (int k0 = 0; k0 < D; k0 += 8) {
+        uint32_t ah[4], al[4], b_hi[2], b_lo[2];
+        load_a_split(a_hi + pm * kTileL * DP, a_lo + pm * kTileL * DP, DP, k0, g, t, ah, al);
+        split_b(lr[k0], lr[k0 + 4], b_hi, b_lo);
+        mma_3xtf32(acc, ah, al, b_hi, b_lo);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = pm * kTileL + g + (e >> 1) * 8, c = jt * 8 + 2 * t + (e & 1);
+        if (r < nl && c < nt) out_b[(size_t)r * N + n0 + c] = acc[e] * oscale;
+      }
+    }
+  }
+}
+
 // The chunk the kernels walk their reduction axes in: 4 floats where every
 // head starts on a 16-byte boundary, else 1.
 inline int chunk_width(int D, int H) { return ((D / H) & 3) == 0 ? 4 : 1; }
@@ -809,11 +1256,14 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int* granted) {
   return err;
 }
 
-// Largest dynamic shared memory a block may ask for, and the SM count, of
-// the current device (queried once per device); -1 when there is none.
+// Largest dynamic shared memory a block may ask for, the SM count and the
+// shared memory of an SM of the current device (queried once per device);
+// max_smem -1 when there is none.
 struct DeviceInfo {
   int max_smem = -1;
   int sms = 0;
+  int smem_per_sm = 0;    // shared memory of one SM
+  int smem_reserved = 0;  // shared memory the system keeps per block
 };
 
 DeviceInfo device_info() {
@@ -825,7 +1275,11 @@ DeviceInfo device_info() {
     DeviceInfo d;
     if (cudaDeviceGetAttribute(&d.max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
             cudaSuccess ||
-        cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&d.smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&d.smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
+            cudaSuccess)
       return DeviceInfo{};
     info[dev] = d;
   }
@@ -884,17 +1338,41 @@ cudaError_t launch_single(const float* q, const float* k, const float* v, const 
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_grouped(const float* q, const float* k, const float* v, const float* lk,
-                           const float* bias, const float* w, float* out, int B, int L,
-                           int N, int D, int H, int smem, cudaStream_t stream) {
-  static int granted = 0;
-  cudaError_t err = allow_smem(pointer_step_grouped_kernel<C>, smem, &granted);
+// rows: queries per block; threads per block
+template <typename Kernel>
+cudaError_t launch_grouped(Kernel kernel, int rows, int threads, const float* q, const float* k,
+                           const float* v, const float* lk, const float* bias, const float* w,
+                           float* out, int B, int L, int N, int D, int H, int smem, int* granted,
+                           cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B, (L + kTileL - 1) / kTileL);
-  pointer_step_grouped_kernel<C><<<grid, dim3(kGroupedThreads), smem, stream>>>(
-      q, k, v, lk, bias, w, out, L, N, D, H);
+  const dim3 grid(B, (L + rows - 1) / rows);
+  kernel<<<grid, dim3(threads), smem, stream>>>(q, k, v, lk, bias, w, out, L, N, D, H);
   return cudaGetLastError();
+}
+
+// The tensor-core kernel takes head widths 8, 16 and 32 up to D = kMmaMaxD;
+// any other width runs on the CUDA cores.
+inline bool grouped_on_tensor_cores(int D, int H) {
+  const int hd = D / H;
+  return (hd == 8 || hd == 16 || hd == 32) && D <= kMmaMaxD;
+}
+
+// m-tiles per block of the tensor-core kernel: at most as many as L fills
+// (16 queries each), 1 past one node tile (whose accumulators take shared
+// memory), and no more than keep 90 % of the blocks the SMs can hold at once
+// busy, by registers and shared memory; 1 where nothing larger fits.
+inline int grouped_mma_tiles(int B, int L, int N, int D, int H, const DeviceInfo& dev) {
+  int mt = N > kGroupedTileN ? 1 : L > 2 * kTileL ? 4 : L > kTileL ? 2 : 1;
+  for (; mt > 1; mt /= 2) {
+    const int smem = (int)sizeof(float) * grouped_mma_smem_floats(N, D, H, mt);
+    if (smem > dev.max_smem) continue;
+    const int by_smem = dev.smem_per_sm / (smem + dev.smem_reserved);
+    const int per_sm = by_smem < mma_min_blocks(mt) ? by_smem : mma_min_blocks(mt);
+    const long long blocks = (long long)B * ((L + kTileL * mt - 1) / (kTileL * mt));
+    if (10 * blocks >= 9LL * dev.sms * per_sm) break;
+  }
+  return mt;
 }
 
 }  // namespace
@@ -905,7 +1383,11 @@ int pointer_step_single_smem_bytes(int N, int D, int H) {
   return single_config(N, D, H, device_info().max_smem).smem;
 }
 
+// The least a launch asks for (the tensor-core kernel's one m-tile per
+// block); a launch takes more m-tiles only where the device grants them.
 int pointer_step_grouped_smem_bytes(int N, int D, int H) {
+  if (grouped_on_tensor_cores(D, H))
+    return (int)sizeof(float) * grouped_mma_smem_floats(N, D, H, 1);
   const int tn = grouped_tile_nodes(N);
   return (int)sizeof(float) * (tn * (D + chunk_width(D, H)) + 2 * kTileL * D +
                               kTileL * H * padded_nodes(tn) + 3 * kTileL * H);
@@ -938,11 +1420,42 @@ int pointer_step_single(const void* q, const void* k, const void* v, const void*
 int pointer_step_grouped(const void* q, const void* k, const void* v, const void* lk,
                          const void* bias, const void* w, void* out, int B, int L, int N,
                          int D, int H, void* stream) {
-  const int smem = pointer_step_grouped_smem_bytes(N, D, H);
-  const auto launch = chunk_width(D, H) == 4 ? launch_grouped<4> : launch_grouped<1>;
-  return (int)launch((const float*)q, (const float*)k, (const float*)v, (const float*)lk,
-                     (const float*)bias, (const float*)w, (float*)out, B, L, N, D, H, smem,
-                     (cudaStream_t)stream);
+  static int granted[11] = {};  // per kernel instance
+  const auto go = [&](auto kernel, int rows, int threads, int smem, int* g) {
+    return (int)launch_grouped(kernel, rows, threads, (const float*)q, (const float*)k,
+                               (const float*)v, (const float*)lk, (const float*)bias,
+                               (const float*)w, (float*)out, B, L, N, D, H, smem, g,
+                               (cudaStream_t)stream);
+  };
+  if (!grouped_on_tensor_cores(D, H)) {
+    const int smem = pointer_step_grouped_smem_bytes(N, D, H);
+    return chunk_width(D, H) == 4 ? go(pointer_step_grouped_kernel<4>, kTileL, kGroupedThreads,
+                                       smem, granted)
+                                  : go(pointer_step_grouped_kernel<1>, kTileL, kGroupedThreads,
+                                       smem, granted + 1);
+  }
+  const DeviceInfo dev = device_info();
+  if (dev.max_smem < 0) return (int)cudaErrorNoDevice;
+  const int mt = grouped_mma_tiles(B, L, N, D, H, dev);
+  const int smem = (int)sizeof(float) * grouped_mma_smem_floats(N, D, H, mt);
+  const int hd = D / H;
+  const int i = 2 + 3 * (hd == 8 ? 0 : hd == 16 ? 1 : 2) + (mt == 1 ? 0 : mt == 2 ? 1 : 2);
+  const auto by_mt = [&](auto k1, auto k2, auto k4) {
+    return mt == 1   ? go(k1, kTileL, mma_threads(1), smem, granted + i)
+           : mt == 2 ? go(k2, 2 * kTileL, mma_threads(2), smem, granted + i)
+                     : go(k4, 4 * kTileL, mma_threads(4), smem, granted + i);
+  };
+  switch (hd) {
+    case 8:
+      return by_mt(pointer_step_grouped_mma_kernel<8, 1>, pointer_step_grouped_mma_kernel<8, 2>,
+                   pointer_step_grouped_mma_kernel<8, 4>);
+    case 16:
+      return by_mt(pointer_step_grouped_mma_kernel<16, 1>, pointer_step_grouped_mma_kernel<16, 2>,
+                   pointer_step_grouped_mma_kernel<16, 4>);
+    default:
+      return by_mt(pointer_step_grouped_mma_kernel<32, 1>, pointer_step_grouped_mma_kernel<32, 2>,
+                   pointer_step_grouped_mma_kernel<32, 4>);
+  }
 }
 
 }  // extern "C"

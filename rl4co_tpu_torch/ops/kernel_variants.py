@@ -1,6 +1,6 @@
 """Variants of the pointer kernels, timed side by side on one GPU.
 
-    python3 -m rl4co_tpu_torch.ops.kernel_variants [--baseline FILE] [VARIANT ...]
+    python3 -m rl4co_tpu_torch.ops.kernel_variants [--baseline FILE ...] [VARIANT ...]
     (from the repository root)
 
 Each variant is a patched copy of `rl4co_tpu_torch/csrc/pointer_kernel.cu`,
@@ -9,12 +9,14 @@ variant, all started together), loaded with `ctypes` and swapped in for the
 wrapper's library. Every variant that still computes the logits is held
 against the plain version on its kernel's cases of `chip_smoke.CASES` (those
 whose shared memory fits); then the kernels alone are timed in turns (the
-list, then the list reversed) by `chip_smoke.time_ms` at the paths' shapes.
-`--baseline FILE` adds the unpatched source FILE (another commit's
-`pointer_kernel.cu`) as the variant `baseline`, timed at every shape of the
-run. Without variant names: DEFAULT_SINGLE and DEFAULT_GROUPED. Prints one
-JSON line per result, `ptxas`' registers and spills of every build first.
-Needs a card, `nvcc` and numpy; imports nothing of JAX.
+list, then the list reversed) by `chip_smoke.time_ms` at the paths' shapes,
+each beside `chip_smoke.bound_ms` and `chip_smoke.tc_bound_ms`. Each
+`--baseline FILE` adds an unpatched source (another commit's
+`pointer_kernel.cu`) as the variant `baseline`, `baseline2`, ..., checked
+and timed at every shape of the run. Without variant names: DEFAULT_SINGLE
+and DEFAULT_GROUPED. Prints one JSON line per result, `ptxas`' registers and
+spills of every build first. Needs a card, `nvcc` and numpy; imports nothing
+of JAX.
 
 Single-query kernel (`pointer_step_single`, K2; names combine with `-`):
   g<G>t<T>n<N>  G groups of T threads per block, node tiles of N (the
@@ -26,20 +28,32 @@ Single-query kernel (`pointer_step_single`, K2; names combine with `-`):
   bulktile      the same, one bulk copy per tile into unpadded rows.
 
 Grouped kernel (`pointer_step_grouped`, K1): `grouped` is the shipped
-kernel, `grouped-<patch>[-<patch>...]` a patched copy:
-  copyonly      K, V and LK staged, queries, bias and W read, the logits
-                written; the arithmetic phases reduced to one read each;
-  computeonly   nothing staged, the phases run on whatever is in shared
-                memory, and the projection reads W from shared memory;
-  noproj        the projection is skipped (the logits use the queries);
-  tileL<T>      T queries per block (kTileL), one block per SM at least;
-  subL<S>       S queries per thread in scores, glimpse and projection;
-  minb<M>       `__launch_bounds__`' minimum of blocks per SM set to M;
-  scoreN<R>     R nodes per thread in the scores phase (kScoreNodes);
-  logitN<R>     R nodes per thread in the logits phase (kLogitNodes);
-  groupL<G>     G queries per thread in the logits phase (kGroupL);
-  fullsub       sub-tiles of kSubL queries wholly past the last query are
-                computed as well (the kernel before it skipped them).
+kernel, `grouped-<patch>[-<patch>...]` a patched copy. The patches act on
+the tensor-core kernel (`pointer_step_grouped_mma_kernel`) unless they say
+otherwise:
+  copyonly      staging, fragment loads and the online softmax only: every
+                product and every split cut to one add;
+  computeonly   nothing staged (K, V, LK, W nor bias), the phases run on
+                whatever is in shared memory, and the projection reads W's
+                stand-in from shared memory;
+  noproj        the projection is skipped (the logits use zeros);
+  nohead        the (head, m-tile) pairs skipped: no scores, softmax or
+                glimpse (the projection takes the queries);
+  nologits      the logits' products skipped (nothing written);
+  projunroll<U> the projection's k8 loop unrolled U times (2 shipped), so
+                that more of W's loads are in flight;
+  fastexp       the online softmax's exp by `__expf` (ex2.approx);
+  tf32x1        one TF32 pass per product instead of the 3xTF32 split: the
+                precision a plain TF32 kernel would have (fails the check);
+  mt<M>         M m-tiles of 16 queries per block wherever shared memory
+                allows (1, 2 or 4; the shipped kernel picks per launch);
+  regs<R>       at most R registers per thread (kMmaMaxRegs; 80 lets three
+                blocks of 256 threads share an SM);
+  tileN<T>      node tiles of T (kGroupedTileN, a multiple of 8 up to 64),
+                in both grouped kernels;
+  cudacore      every shape on the CUDA-core kernel (the design before the
+                tensor cores, which now serves head widths other than 8, 16
+                and 32).
 """
 
 from __future__ import annotations
@@ -61,17 +75,24 @@ OUT_DIR = os.path.join(PKG, "_build", "variants")
 DEFAULT_SINGLE = ["g4t128n32", "g4t128n32-copyonly", "g4t128n32-computeonly",
                   "g4t128n32-bulkrow", "g4t128n32-bulktile", "g2t256n64", "g1t256n64"]
 DEFAULT_GROUPED = ["grouped", "grouped-copyonly", "grouped-computeonly", "grouped-noproj",
-                   "grouped-tileL32", "grouped-tileL64", "grouped-subL4", "grouped-subL16",
-                   "grouped-minb2", "grouped-fullsub", "grouped-scoreN1", "grouped-scoreN2",
-                   "grouped-logitN1", "grouped-logitN4", "grouped-groupL8"]
+                   "grouped-tf32x1", "grouped-mt1", "grouped-mt2", "grouped-mt4",
+                   "grouped-regs80", "grouped-tileN32", "grouped-cudacore"]
 BASE = {"g4t128n32", "grouped"}  # the shipped kernels: no patch
-NO_LOGITS = ("copyonly", "computeonly", "noproj")  # patches that break the result
-# (B, N) for the single kernel, (B, L, N) for the grouped one; D 128, H 8
+NO_LOGITS = ("copyonly", "computeonly", "noproj", "nohead", "nologits")  # break the result
+# (B, L, N, D, H); L is None for the single kernel
 SHAPES = {
-    "single": [(1024, 50), (512, 50), (512, 20), (4096, 50), (64, 2048)],
-    # POMO's multistart greedy and dihedral-8 dispatches and its train step on
-    # CVRP-50, AM's multistart on TSP-50, multistart on TSP-500
-    "grouped": [(655, 50, 51), (648, 50, 51), (64, 50, 51), (256, 50, 50), (16, 500, 500)],
+    "single": [(1024, None, 50, 128, 8), (512, None, 50, 128, 8), (512, None, 20, 128, 8),
+               (4096, None, 50, 128, 8), (64, None, 2048, 128, 8)],
+    # the grouped shapes of chip_smoke.MAIN_SHAPES and EXTRA_TIMES: POMO on
+    # CVRP-50 (multistart greedy, dihedral-8, a train step), AM's multistart
+    # on TSP-50, TSP-500 multistart, beam search, SymNCO, OP-20, CVRPTW-50,
+    # MTVRP-50, MatNet on ATSP-50 at D 256 (dispatch, train step), Reptile's
+    # POMO on TSP-20/50/100
+    "grouped": [(655, 50, 51, 128, 8), (648, 50, 51, 128, 8), (64, 50, 51, 128, 8),
+                (256, 50, 50, 128, 8), (16, 500, 500, 128, 8), (163, 50, 50, 128, 8),
+                (512, 50, 50, 128, 8), (409, 20, 21, 128, 8), (256, 50, 51, 128, 8),
+                (512, 50, 51, 128, 8), (256, 50, 50, 256, 16), (64, 50, 50, 256, 16),
+                (64, 20, 20, 128, 8), (64, 50, 50, 128, 8), (64, 100, 100, 128, 8)],
 }
 
 
@@ -137,97 +158,67 @@ def patched_single(src: str, name: str) -> str:
     return src
 
 
-# The grouped kernel's inner products, each cut to one read by `copyonly`
-_SCORES_DOT = ("      for (int j = 0; j < hd; j += C) {\n"
-               "        Chunk<C> kv[kScoreNodes];\n"
-               "#pragma unroll\n"
-               "        for (int r = 0; r < kScoreNodes; ++r) kv[r] = load_chunk<C>(kr[r] + j);\n"
-               "#pragma unroll\n"
-               "        for (int l = 0; l < kSubL; ++l) {\n"
-               "          const Chunk<C> qv = load_chunk<C>(qr + l * D + j);\n"
-               "#pragma unroll\n"
-               "          for (int r = 0; r < kScoreNodes; ++r)\n"
-               "#pragma unroll\n"
-               "            for (int e = 0; e < C; ++e) acc[l][r] += qv.v[e] * kv[r].v[e];\n"
-               "        }\n"
-               "      }\n")
-_GLIMPSE_DOT = ("      int n = 0;\n"
-                "      for (; n + C <= nt; n += C) {\n"
-                "        float vv[C];\n"
-                "#pragma unroll\n"
-                "        for (int e = 0; e < C; ++e) vv[e] = buf[(n + e) * DP + d];\n"
-                "#pragma unroll\n"
-                "        for (int l = 0; l < kSubL; ++l) {\n"
-                "          const Chunk<C> pv = load_chunk<C>(wrow + l * H * TNP + n);\n"
-                "#pragma unroll\n"
-                "          for (int e = 0; e < C; ++e) acc[l] += pv.v[e] * vv[e];\n"
-                "        }\n"
-                "      }\n"
-                "      for (; n < nt; ++n) {  // the nodes past the last whole chunk\n"
-                "        const float vv = buf[n * DP + d];\n"
-                "#pragma unroll\n"
-                "        for (int l = 0; l < kSubL; ++l) acc[l] += wrow[l * H * TNP + n] * vv;\n"
-                "      }\n")
-_PROJ_DOT = ("#pragma unroll\n"
-             "      for (int l = 0; l < kSubL; ++l) {\n"
-             "        const Chunk<C> gv = load_chunk<C>(g_s + (lb + l) * D + d);\n"
-             "#pragma unroll\n"
-             "        for (int e = 0; e < C; ++e) acc[l] += gv.v[e] * wv[e];\n"
-             "      }\n")
-_LOGITS_DOT = ("      for (int d = 0; d < D; d += C) {\n"
-               "        Chunk<C> lv[kLogitNodes];\n"
-               "#pragma unroll\n"
-               "        for (int r = 0; r < kLogitNodes; ++r) lv[r] = load_chunk<C>(lr[r] + d);\n"
-               "#pragma unroll\n"
-               "        for (int a = 0; a < kGroupL; ++a) {\n"
-               "          const Chunk<C> pv = load_chunk<C>(prow + a * D + d);\n"
-               "#pragma unroll\n"
-               "          for (int r = 0; r < kLogitNodes; ++r)\n"
-               "#pragma unroll\n"
-               "            for (int e = 0; e < C; ++e) acc[a][r] += pv.v[e] * lv[r].v[e];\n"
-               "        }\n"
-               "      }\n")
-_W_LOAD = "      for (int e = 0; e < C; ++e) wv[e] = w[(size_t)(d + e) * D + j];\n"
-_LAUNCH_BOUNDS = "__launch_bounds__(kGroupedThreads, 3)"
+# Pieces of the tensor-core grouped kernel that its patches replace
+_MMA_3X = ("  mma_tf32(d, a_lo, b_hi);\n"
+           "  mma_tf32(d, a_hi, b_lo);\n"
+           "  mma_tf32(d, a_hi, b_hi);\n")
+_SPLIT = ("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+          "  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;\n")
+_STAGE = ("  const int DP = D + 4;\n"
+          "  for (int i = tid * 4; i < rows * D; i += NT * 4) {\n")
+_BIAS_COPY = "      if (r < nl && c < nt)\n"
+_W_STAGE = "  if (WS) {  // W, once, in flight while the first node tile is computed\n"
+_W_LOAD = ("__ldg(w0 + (size_t)k0 * D + u * NS * 8),\n"
+           "                  __ldg(w0 + (size_t)(k0 + 4) * D + u * NS * 8)")
+_PROJ_LOOP = ("#pragma unroll 2\n"
+              "    for (int k0 = 0; k0 < D; k0 += 8) {\n"
+              "      uint32_t ah[4], al[4];\n")
+_EXPS = ("alpha[i] = first ? 0.f : expf(", "s[j][e] = expf(")
+_HEAD_LOOP = "    for (int item = warp; item < H * MT; item += NW) {\n"
+_LOGIT_LOOP = "    for (int jt = pj; jt < (nt + 7) >> 3 && pm < mts; jt += NS) {\n"
+_MT_CHOICE = "  int mt = N > kGroupedTileN ? 1 : L > 2 * kTileL ? 4 : L > kTileL ? 2 : 1;\n"
+_ON_TC = "  return (hd == 8 || hd == 16 || hd == 32) && D <= kMmaMaxD;\n"
 
 
 def patched_grouped(src: str, name: str) -> str:
-    parts = name.split("-")[1:]
-    for part in parts:
-        if m := re.fullmatch(r"tileL(\d+)", part):
-            src = re.sub(r"kTileL = \d+;", f"kTileL = {m[1]};", src)
-            if not any(p.startswith("minb") for p in parts):
-                src = sub(src, _LAUNCH_BOUNDS, "__launch_bounds__(kGroupedThreads, 1)")
-        elif m := re.fullmatch(r"subL(\d+)", part):
-            src = re.sub(r"kSubL = \d+;", f"kSubL = {m[1]};", src)
-        elif m := re.fullmatch(r"minb(\d+)", part):
-            src = sub(src, _LAUNCH_BOUNDS, f"__launch_bounds__(kGroupedThreads, {m[1]})")
-        elif m := re.fullmatch(r"(score|logit)N(\d+)", part):
-            name_ = "kScoreNodes" if m[1] == "score" else "kLogitNodes"
-            src = re.sub(name_ + r" = \d+;", f"{name_} = {m[2]};", src)
-        elif m := re.fullmatch(r"groupL(\d+)", part):
-            src = re.sub(r"kGroupL = \d+;", f"kGroupL = {m[1]};", src)
-        elif part == "fullsub":
-            src = sub(src, "  const int nsub = (nl + kSubL - 1) / kSubL;",
-                      "  const int nsub = kTileL / kSubL;")
+    for part in name.split("-")[1:]:
+        if m := re.fullmatch(r"mt([124])", part):
+            # M where it fits, else the next smaller
+            src = sub(src, _MT_CHOICE, f"  int mt = {m[1]};\n")
+            src = sub(src, "    if (10 * blocks >= 9LL * dev.sms * per_sm) break;\n",
+                      "    (void)blocks;\n    (void)per_sm;\n    break;\n")
+        elif m := re.fullmatch(r"regs(\d+)", part):
+            src = re.sub(r"kMmaMaxRegs = \d+;", f"kMmaMaxRegs = {m[1]};", src)
+        elif m := re.fullmatch(r"tileN(\d+)", part):
+            if int(m[1]) % 8 or not 8 <= int(m[1]) <= 64:
+                raise ValueError(f"tileN takes a multiple of 8 up to 64, not {m[1]}")
+            src = re.sub(r"kGroupedTileN = \d+;", f"kGroupedTileN = {m[1]};", src)
         elif part == "copyonly":
-            src = sub(src, _SCORES_DOT, "      acc[0][0] = kr[0][0] + qr[0];\n")
-            src = sub(src, "    for (int r = warp; r < nl * H; r += nwarps)\n",
-                      "    for (int r = warp; r < 0; r += nwarps)\n")
-            src = sub(src, _GLIMPSE_DOT, "      acc[0] += buf[d] + wrow[0];\n")
-            src = sub(src, _PROJ_DOT, "#pragma unroll\n"
-                      "      for (int e = 0; e < C; ++e) acc[0] += wv[e];\n")
-            src = sub(src, _LOGITS_DOT, "      acc[0][0] = lr[0][0] + prow[0];\n")
+            src = sub(src, _MMA_3X,
+                      "  d[0] += __uint_as_float(a_hi[0] ^ a_lo[0] ^ b_hi[0] ^ b_lo[0]);\n")
+            src = sub(src, _SPLIT, "  hi = __float_as_uint(x);\n  lo = hi;\n")
         elif part == "computeonly":
-            src = sub(src, "  for (int i = tid * C; i < rows * D; i += kGroupedThreads * C) {\n",
-                      "  if (rows >= 0) return;\n"
-                      "  for (int i = tid * C; i < rows * D; i += kGroupedThreads * C) {\n")
-            # rows 0-31 of the staging buffer stand in for W's rows
-            src = sub(src, _W_LOAD,
-                      "      for (int e = 0; e < C; ++e) wv[e] = buf[((d + e) & 31) * DP + j];\n")
+            src = sub(src, _STAGE, _STAGE.replace("  for", "  if (rows >= 0) return;\n  for", 1))
+            src = sub(src, _BIAS_COPY, _BIAS_COPY.replace("if (", "if (false && "))
+            src = sub(src, _W_STAGE, _W_STAGE.replace("if (WS)", "if (false && WS)"))
+            # rows 0-31 of the two tile buffers stand in for W's rows
+            src = sub(src, _W_LOAD, "kbuf[((k0 + t) & 31) * DP + (pj + u * NS) * 8 + g], "
+                                    "kbuf[((k0 + t + 4) & 31) * DP + (pj + u * NS) * 8 + g]")
         elif part == "noproj":
-            src = sub(src, "    const int j = t % D;\n",
-                      "    const int j = t % D;\n    if (j >= 0) break;\n")
+            src = sub(src, _PROJ_LOOP, _PROJ_LOOP.replace("k0 < D", "k0 < 0"))
+        elif part == "nohead":
+            src = sub(src, _HEAD_LOOP, _HEAD_LOOP.replace("item < H * MT", "item < 0"))
+        elif part == "nologits":
+            src = sub(src, _LOGIT_LOOP, _LOGIT_LOOP.replace("jt < (nt + 7) >> 3", "jt < 0"))
+        elif m := re.fullmatch(r"projunroll(\d+)", part):
+            src = sub(src, _PROJ_LOOP, _PROJ_LOOP.replace("unroll 2", f"unroll {m[1]}"))
+        elif part == "fastexp":
+            for old in _EXPS:
+                src = sub(src, old, old.replace("expf(", "__expf("))
+        elif part == "tf32x1":
+            src = sub(src, _MMA_3X, "  mma_tf32(d, a_hi, b_hi);\n")
+        elif part == "cudacore":
+            src = sub(src, _ON_TC, _ON_TC.replace("return (", "return false && ("))
         else:
             raise ValueError(f"unknown patch {part!r} in {name!r}")
     return src
@@ -239,7 +230,7 @@ def ptxas_lines(log: str, kinds) -> dict:
     out, entry = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"pointer_step_(single|grouped)_kernelI\w*?EE", line)
+            m = re.search(r"pointer_step_(single|grouped)(?:_mma)?_kernelI\w*?EE", line)
             entry = m[0] if m and m[1] in kinds else None
         elif entry and ("registers" in line or "spill" in line):
             out[entry] = (out.get(entry, "") + "; " + line.split(":", 1)[-1].strip()).lstrip("; ")
@@ -277,6 +268,18 @@ def build_all(sources: dict, kinds: dict):
     return built
 
 
+def parse_args(argv):
+    """[--baseline FILE ...] [VARIANT ...] -> ({baseline name: file}, variants)"""
+    baselines, names = {}, []
+    it = iter(argv)
+    for arg in it:
+        if arg == "--baseline":
+            baselines["baseline" + (str(len(baselines) + 1) if baselines else "")] = next(it)
+        else:
+            names.append(arg)
+    return baselines, names
+
+
 def main(argv) -> int:
     import torch
 
@@ -288,10 +291,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    baseline = None
-    if argv[:1] == ["--baseline"]:
-        baseline, argv = argv[1], argv[2:]
-    names = argv or DEFAULT_SINGLE + DEFAULT_GROUPED
+    baselines, names = parse_args(argv)
+    names = names or DEFAULT_SINGLE + DEFAULT_GROUPED
     kinds = sorted({kind(n) for n in names})
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -299,13 +300,13 @@ def main(argv) -> int:
     print(json.dumps({"card": smi}), flush=True)
     sources = {name: patched(name) for name in names}
     variant_kinds = {name: [kind(name)] for name in names}
-    if baseline:
-        sources["baseline"] = open(baseline).read()
-        variant_kinds["baseline"] = kinds
+    for name, path in baselines.items():
+        sources[name] = open(path).read()
+        variant_kinds[name] = kinds
     built = build_all(sources, variant_kinds)
     for name, (_, regs) in built.items():
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
-    order = [n for n in (["baseline"] if baseline else []) + names if n in built]
+    order = [n for n in list(baselines) + names if n in built]
 
     max_smem = built[order[0]][0].pointer_kernel_max_smem_bytes()
     for name in order:
@@ -327,20 +328,21 @@ def main(argv) -> int:
     rs = np.random.RandomState(1)
     cases, bounds = {}, {}
     for kd in kinds:
-        for shape in SHAPES[kd]:
-            b, l, n = (shape[0], None, shape[1]) if kd == "single" else shape
-            key = f"B{b} N{n}" if l is None else f"B{b} L{l} N{n}"
-            cases[key] = (kd, n, cs.make_case(rs, b, l, n, 128, 8, 0.7, dev))
-            bounds[key] = cs.bound_ms(b, l, n, 128)[0]
-    print(json.dumps({"bound_ms": bounds}), flush=True)
+        for b, l, n, d, h in SHAPES[kd]:
+            key = (f"B{b} N{n}" if l is None else f"B{b} L{l} N{n}") + f" D{d} H{h}"
+            cases[key] = (kd, n, d, h, cs.make_case(rs, b, l, n, d, h, 0.7, dev))
+            bounds[key] = {"bound_ms": cs.bound_ms(b, l, n, d)[0]}
+            if l is not None:
+                bounds[key]["tc_bound_ms"] = cs.tc_bound_ms(b, l, n, d)[0]
+    print(json.dumps({"bounds": bounds}), flush=True)
     for name in order + order[::-1]:
         lib = built[name][0]
         _build._LIBS["pointer_kernel"] = lib
         ms = {}
-        for key, (kd, n, args) in cases.items():
+        for key, (kd, n, d, h, args) in cases.items():
             if kd not in variant_kinds[name]:
                 continue
-            if getattr(lib, f"pointer_step_{kd}_smem_bytes")(n, 128, 8) > max_smem:
+            if getattr(lib, f"pointer_step_{kd}_smem_bytes")(n, d, h) > max_smem:
                 ms[key] = None  # its shared memory does not fit
                 continue
             ms[key] = cs.time_ms(lambda: fused_pointer_logits(*args))

@@ -14,29 +14,36 @@ per decode step. What was shaped by the TPU is gone: the head-indicator
 matmuls, the padding of N to 128 lanes and of B/L to the block, the VMEM
 budget loop and the node-count detour to the reference.
 
-Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores). Bytes
-moved once are ``4·(3·B·N·D + B·L·D + 2·B·L·N + D·D)`` and f32 operations
+Bound on an H100 (3.35 TB/s; 67 TFLOP/s f32 outside the tensor cores, 495
+TFLOP/s TF32 on them). Bytes moved once are
+``4·(3·B·N·D + B·L·D + 2·B·L·N + D·D)`` and f32 operations
 ``B·L·(6·N·D + 2·D·D)`` (L = 1 for the single kernel). The single kernel
 does 2 operations per byte and is bound by bytes; the grouped kernel reuses
-K/V/LK across L queries and at L = 50 is bound by operations. Both walk the
-nodes in tiles (32 nodes in the single kernel, 64 in the grouped one) with
-an online softmax (a running max and sum per row, earlier tiles rescaled),
-so shared memory does not grow with N and any N runs. The single kernel
-runs persistent blocks, one per SM at D 128, of four groups of 128
+K/V/LK across L queries, about 50 operations per byte at L = 50. Both walk
+the nodes in tiles (32 nodes in the single kernel, 64 in the grouped one)
+with an online softmax (a running max and sum per row, earlier tiles
+rescaled), so shared memory does not grow with N and any N runs. The single
+kernel runs persistent blocks, one per SM at D 128, of four groups of 128
 threads, each group walking its own instances: `W_out` is staged once per
 block in shared memory, and K, V and LK stream through each group's ring of
 node tiles filled by asynchronous copies that run ahead across instance
-boundaries. The grouped kernel stages each tile of K, then V, then LK
-through one shared memory buffer per block of 16 queries, three blocks per
-SM. Measured, its arithmetic phases bind it, not the staging, so each of
-its 256 threads holds a register tile: 8 queries x 4 nodes of one head in
-the scores, 8 queries in the glimpse and the projection, 4 queries x 2
-nodes in the logits; sub-tiles of queries wholly past the last query are
-skipped. Its inner loops walk the reduction axis four floats (one 16-byte
-load from shared memory) at a time wherever every head starts on a 16-byte
-boundary. Scores, weights, glimpse and projection never reach device
-memory. Measured times stand in PERF.md; `ops/kernel_variants.py` times
-patched copies of either kernel beside it.
+boundaries.
+
+The grouped kernel was bound by its f32 arithmetic on the CUDA cores, so it
+takes its four products (scores, weighted values, projection, logits) on
+the tensor cores: `mma.sync` m16n8k8 on TF32 operands, each f32 operand
+split into a TF32 high part and a TF32 remainder and each product taken as
+three passes (the 3xTF32 split), which keeps f32's precision where one TF32
+pass would miss the tolerance 16-60 times over
+(`tests/test_torch_pointer_tf32_split.py`). A block holds 16, 32 or 64
+queries (one to four 16-row tiles, chosen per launch: 64 at L = 50 where B
+fills the SMs, so K, V, LK and `W_out` are staged once per instance); a warp
+owns whole (head, 16-query tile) pairs and keeps their scores, softmax and
+weights in registers. Head widths other than 8, 16 or 32 (or D above 256)
+run the earlier design on the CUDA cores: register tiles of queries x nodes
+over one shared-memory staging buffer. Scores, weights, glimpse and
+projection never reach device memory. Measured times stand in PERF.md;
+`ops/kernel_variants.py` times patched copies of either kernel beside it.
 
 On a CPU tensor the wrapper computes the plain version. On a CUDA tensor it
 launches the kernel or raises; nothing falls back.
