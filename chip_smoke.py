@@ -53,9 +53,15 @@ L2D on FJSP and JSSP (makespans equal to the JAX package's) with one JAX
 stepwise-PPO step replayed and `--model l2d-ppo` trained. Last the
 infrastructure: AM trained on TSP-50 through the train CLI by two `--distributed`
 ranks on the one card (gloo), held to the one-process run of the same command,
-with TensorBoard, MLflow and a profile; Reptile over POMO on TSP-20/50/100
-through the grouped kernel at L = N, every outer update recomputed; and remat
-and the fused rollout baseline on the AM checkpoint. Then the port's 13
+with TensorBoard, MLflow and a profile; the same training by four processes
+as a (dp 2, model 2) mesh, the policy split over the model axis
+(`shard_params_model_axis`: Megatron pairs, gathered column splits, the pointer
+kernel on whole tensors on every process), held to that one-process run;
+MVMoE-POMO's experts split over two processes, held to `train_mvmoe`'s run;
+`evaluate_policy`'s dispatch sizing under a real CUDA out-of-memory error;
+Reptile over POMO on TSP-20/50/100 through the grouped kernel at L = N, every
+outer update recomputed; and remat and the fused rollout baseline on the AM
+checkpoint. Then the port's 13
 examples (`rl4co_tpu_torch/examples/`) at their default sizes, each held to
 the pointer kernels its path launches. Every phase prints one
 JSON line; any failure is a traceback and a non-zero exit. Without a card it
@@ -265,7 +271,14 @@ EXTRA_TIMES = [
 ]
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -276,11 +289,16 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def make_case(rs, b, l, n, d, h, feasible, device):
-    """Inputs of one kernel call from a frozen numpy stream."""
+def make_case(rs, b, l, n, d, h, feasible, device, values=None):
+    """Inputs of one kernel call from a frozen numpy stream; with a
+    `torch.Generator` ``values`` the normal values are drawn on the device
+    from it (a timing's inputs: numpy's legacy normals cost seconds per
+    shape at B 8192, and a time does not depend on the values)."""
     from rl4co_tpu_torch.ops.pointer_kernel import mask_to_neg_bias
 
     def normal(*shape):
+        if values is not None:
+            return torch.randn(shape, generator=values, device=device)
         return torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(device)
 
     q = normal(b, d) if l is None else normal(b, l, d)
@@ -422,9 +440,10 @@ def time_kernels(device, seed=1, shapes=None):
     )
 
     rs = np.random.RandomState(seed)
+    values = torch.Generator(device=device).manual_seed(seed)
     times = []
     for name, (b, l, n, d, h) in shapes or list(MAIN_SHAPES.items()):
-        args = make_case(rs, b, l, n, d, h, 0.7, device)
+        args = make_case(rs, b, l, n, d, h, 0.7, device, values)
         # plain, kernel, kernel, plain: the two versions in turns on one card;
         # device times (graph replays), the eager enqueue times beside them
         p1 = time_ms(lambda: pointer_logits_plain(*args))
@@ -589,16 +608,27 @@ def device_events(fn, host=True):
     with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         result = fn()
         torch.cuda.synchronize()
-    kernels, ranges = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    # the profiler's own records, read as they are: `prof.events()` first
+    # builds a tree of every event in Python, minutes over the whole script
+    raw = prof.profiler.kineto_results
+    origin = raw.trace_start_ns()
+    skip = ("[memory]", "[OutOfMemory]")
+    kernels, ranges, names = [], {}, {}
+    for e in raw.events():
+        name = e.name()
+        if name in skip or (hasattr(e, "is_hidden_event") and e.is_hidden_event()):
+            continue
+        if name not in names:
+            names[name] = torch._C._demangle(name)
+        name = names[name]
+        start, end = (e.start_ns() - origin) / 1e3, (e.end_ns() - origin) / 1e3
+        if e.device_type() == DeviceType.CUDA:
             # device-side kernels only: an annotated region's row on the device
             # (`Optimizer.step#...`, a `part:`) repeats its kernels' time
-            if not (getattr(e, "is_user_annotation", False)
-                    or e.name.startswith(("Optimizer.", "part:"))):
-                kernels.append((e.name, e.time_range.start, e.time_range.end - e.time_range.start))
-        elif e.name.startswith("part:"):
-            ranges[e.name[len("part:"):]] = (e.time_range.start, e.time_range.end)
+            if not (e.is_user_annotation() or name.startswith(("Optimizer.", "part:"))):
+                kernels.append((name, start, end - start))
+        elif name.startswith("part:"):
+            ranges[name[len("part:"):]] = (start, end)
     return result, kernels, ranges
 
 
@@ -1532,16 +1562,14 @@ def train_mvmoe(env, cvrp, device, batch=64, steps=2, val=64):
     heads, FFN 512, 4 experts, top-2, instance norm): ``batch`` x 50 starts,
     two steps, then POMO's evaluation step (multistart greedy on dihedral-8)
     on ``val`` committed instances. Its pointer head is `pointer_logits` with
-    an MoE projection: no kernel launches."""
-    from rl4co_tpu_torch.decoding import DecodeSpec
-    from rl4co_tpu_torch.models.zoo.mvmoe import MVMoE_POMO
-
-    torch.manual_seed(1234)
-    algo = MVMoE_POMO(env, policy_kwargs=dict(device=device),
-                      train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+    an MoE projection: no kernel launches. Also returns the record of its
+    first ``EP_STEPS`` steps (`record_updates`), which
+    `drive_ep_mvmoe_cvrp50` replays."""
+    algo = mvmoe_algorithm(env, device)
     p = algo.policy
     assert (p.num_encoder_layers, p.num_experts, p.moe_topk) == (6, 4, 2)
     algo.reseed(61)
+    record = record_updates(algo, EP_STEPS)
     none = {"pointer_step_single": 0, "pointer_step_grouped": 0}
     eval_step = algo.make_eval_step()
 
@@ -1554,7 +1582,7 @@ def train_mvmoe(env, cvrp, device, batch=64, steps=2, val=64):
 
     report, launches = train_zoo(algo, batch, steps, evaluate, none, none)
     return {"model": "MVMoE-POMO 128/8/6/512, 4 experts top-2, instance norm, CVRP-50, "
-                     "50 starts", **report}, launches
+                     "50 starts", **report}, launches, record
 
 
 def train_polynet(env, locs, device, batch=64, steps=2, val=64):
@@ -1888,6 +1916,7 @@ def eval_cli_op_multistart(device, size=1000):
 NAR_MEAN_RTOL, NAR_COST_RTOL, NAR_SAME_SHARE = 1e-4, 1e-5, 0.99
 # per-ant log-likelihoods and rewards of the replayed tours against JAX's
 NAR_REPLAY_RTOL = 1e-5
+ACO_PROFILED_ITERATIONS = 2   # of an ACO dispatch's 10, under the profiler
 # the TPU run's artifact (`runs/nar_tsp500.json`, TPU v5e): printed beside the
 # result, not asserted: it polished only the best ant once, after the loop
 NAR_TPU_ARTIFACT = {"untrained": 17.4788, "trained": 17.3602,
@@ -2003,8 +2032,17 @@ def drive_golden_deepaco(device, count=128):
     launches = dict(LAUNCHES)
     assert sum(launches.values()) == 0, launches
 
+    # under the profiler a dispatch's first ACO_PROFILED_ITERATIONS of its 10
+    # iterations (the whole dispatch took a minute under it, 8 s without),
+    # beside their wall time without it
+    def aco_part():
+        with torch.no_grad():
+            return run_ant_system(env, chunks[0], algo.heatmap(chunks[0]), gen, n_ants=20,
+                                  n_iterations=ACO_PROFILED_ITERATIONS, local_search_fn=ls)
+
     t_profile = time.perf_counter()
-    _, busy, n_launches, top = device_profile(lambda: aco(chunks[0]), host=False)
+    _, part_ms = sync_ms(aco_part)
+    _, busy, n_launches, top = device_profile(aco_part, host=False)
     profile_s = time.perf_counter() - t_profile
     return {"model": "DeepACO NARGNN embed 64, 15 GNN layers, 5 heatmap layers, k 100, "
                      "TSP-500, JAX-initialised weights (key 1234)",
@@ -2022,8 +2060,9 @@ def drive_golden_deepaco(device, count=128):
             "tpu_artifact_for_information": NAR_TPU_ARTIFACT,
             "peak_memory_bytes": peak,
             "profiled_aco_dispatch": {
+                "iterations": ACO_PROFILED_ITERATIONS, "wall_ms_unprofiled": part_ms,
                 "device_busy_ms": busy, "device_launches": n_launches,
-                "device_busy_share": None if busy is None else busy / aco_ms[0],
+                "device_busy_share": None if busy is None else busy / part_ms,
                 "top_kernels": top},
             "tolerances": {"mean_rtol": NAR_MEAN_RTOL, "cost_rtol": NAR_COST_RTOL,
                            "same_share": NAR_SAME_SHARE},
@@ -4067,6 +4106,14 @@ REPTILE_EPOCHS, REPTILE_STEPS, REPTILE_BATCH = 4, 3, 64
 # Python run in each data-parallel rank before `dp_run` (a CPU rehearsal puts
 # its stubs here)
 DP_CHILD_PRELUDE = ""
+# tensor parallelism: dp x model processes on the card replay the first
+# TP_STEPS of `drive_dp_am_tsp50`'s one-process steps; expert parallelism:
+# EP_MODEL processes replay `train_mvmoe`'s first EP_STEPS steps; both at the
+# dp holds above
+TP_DP, TP_MODEL, TP_STEPS = 2, 2, 2
+EP_MODEL, EP_STEPS = 2, 2
+# eval_oom_halving: the card's free memory left to the evaluation
+OOM_KEEP_FREE = 2 << 30
 
 
 def dp_argv(tmp, name, batch=512, steps=4, val=256):
@@ -4082,27 +4129,42 @@ def dp_argv(tmp, name, batch=512, steps=4, val=256):
             "--profile-dir", os.path.join(out, "profile"), "--profile-steps", "1"]
 
 
-def dp_run(argv, out_json, replay=None):
+def dp_run(argv, out_json, replay=None, model=1):
     """The train CLI in this process with every train step timed and its
-    launches counted; writes the steps, the launches, the final parameters,
-    the tours and the generator's state after each step (``<out_json>.pt``).
-    The one-process reference of `drive_dp_am_tsp50` (``replay`` None), or a
+    launches counted; writes the steps, the launches and their shapes, the
+    whole parameters, the tours and the generator's state after each step,
+    and the tours of every greedy rollout (``<out_json>.pt``). The
+    one-process reference of `drive_dp_am_tsp50` (``replay`` None), or a
     rank of it that replays, from the reference's ``.pt`` file ``replay``,
     its rows of each step's tours and the reference's random stream after
-    each step."""
+    each step. With ``model > 1`` the CLI's processes form a ``(dp, model)``
+    mesh and the policy is split over its model axis once the CLI has built
+    it (`shard_params_model_axis` at its default ``min_dim``): the train
+    CLI has no flag for the axis, as the JAX package's has none."""
     from rl4co_tpu_torch import train
     from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.parallel import mesh as mesh_mod
     from rl4co_tpu_torch.parallel.mesh import active_shard
+    from rl4co_tpu_torch.rl import reinforce
     from rl4co_tpu_torch.rl.reinforce import REINFORCE
 
     reference = None if replay is None else torch.load(replay)
     done, undo = instrument_updates(REINFORCE)
-    tours, snapshots, streams = [], [], []
+    shapes, undo_shapes = record_launch_shapes()
+    tours, snapshots, streams, greedy_tours, decisions = [], [], [], [], {}
     inner_rollout, inner_update = REINFORCE.train_rollout, REINFORCE.update
+    inner_any_rollout = reinforce.rollout
+    inner_init, inner_build = mesh_mod.init_distributed, train.build
 
     def train_rollout(self, *args, **kwargs):
         out = inner_rollout(self, *args, **kwargs)
         tours.append(out.actions.cpu())
+        return out
+
+    def any_rollout(policy, env, instances, spec, *args, **kwargs):
+        out = inner_any_rollout(policy, env, instances, spec, *args, **kwargs)
+        if spec.kind == "greedy":
+            greedy_tours.append(out.actions.cpu())
         return out
 
     def update(self, instances):   # the replay and the records outside the timed step
@@ -4115,10 +4177,23 @@ def dp_run(argv, out_json, replay=None):
         if reference is not None:
             self.generator.set_state(reference["streams"][i])
         streams.append(self.generator.get_state())
-        snapshots.append({k: p.detach().cpu().clone() for k, p in self.policy.named_parameters()})
+        whole = mesh_mod.full_state_dict(self.policy)
+        snapshots.append({k: whole[k].cpu().clone() for k, _ in self.policy.named_parameters()})
         return metrics
 
+    def init_distributed(*args, **kwargs):
+        _, dev = inner_init(*args, **kwargs)
+        return mesh_mod.make_mesh(model=model), dev
+
+    def build(spec, mesh=None, **kwargs):
+        algo, trainer = inner_build(spec, mesh=mesh, **kwargs)
+        decisions.update(mesh_mod.shard_params_model_axis(algo.policy, mesh))
+        return algo, trainer
+
     REINFORCE.train_rollout, REINFORCE.update = train_rollout, update
+    reinforce.rollout = any_rollout
+    if model > 1:
+        mesh_mod.init_distributed, train.build = init_distributed, build
     t0 = time.perf_counter()
     try:
         reset_launches()
@@ -4126,13 +4201,61 @@ def dp_run(argv, out_json, replay=None):
         launches = dict(LAUNCHES)
     finally:
         REINFORCE.train_rollout, REINFORCE.update = inner_rollout, inner_update
+        reinforce.rollout = inner_any_rollout
+        mesh_mod.init_distributed, train.build = inner_init, inner_build
         undo()
-    torch.save({"params": snapshots, "tours": tours, "streams": streams}, out_json + ".pt")
+        undo_shapes()
+    torch.save({"params": snapshots, "tours": tours, "streams": streams,
+                "greedy_tours": greedy_tours}, out_json + ".pt")
     with open(out_json, "w") as f:
         json.dump({"steps": [{k: s[k] for k in ("ms", "loss", "metrics", "launches")}
                              for s in done],
                    "launches": launches, "cli_seconds": time.perf_counter() - t0,
+                   "launch_shapes": sorted({json.dumps(s) for s in shapes}),
+                   "decisions": {k: sum(v == k for v in decisions.values())
+                                 for k in ("row", "col", "expert", "replicated")},
                    "device": str(algo.device)}, f)
+
+
+def start_ranks(code_for, world, timeout=600):
+    """``world`` processes on this machine joined as ranks of one group
+    (``RANK``, ``WORLD_SIZE``, ... for `init_distributed`), each running the
+    Python of ``code_for(rank)`` after `DP_CHILD_PRELUDE`; waits for all,
+    asserts that each exited with 0 and returns the seconds it took."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        code = "; ".join(filter(None, [
+            f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke", DP_CHILD_PRELUDE,
+            code_for(rank)]))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outputs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outputs):
+        assert p.returncode == 0, out[-4000:]
+    return time.perf_counter() - t0
+
+
+def param_deviation(got: dict, want: dict):
+    """The largest absolute difference over every parameter, and the share
+    of their elements within 1e-6."""
+    dev = [(got[k] - want[k]).abs() for k in want]
+    return (max(d.max().item() for d in dev),
+            sum((d <= 1e-6).sum().item() for d in dev) / sum(d.numel() for d in dev))
 
 
 def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
@@ -4145,8 +4268,6 @@ def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
     of both ranks (the replayed rollout and the baseline's greedy one); the
     TensorBoard and MLflow files of rank 0 and the busy share of the
     profiled steps."""
-    import socket
-
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
     one_argv = [*dp_argv(tmp, "one", batch, steps), "--dp", "1", "--device", str(device)]
@@ -4154,34 +4275,12 @@ def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
     one = json.load(open(os.path.join(tmp, "one.json")))
     one_saved = torch.load(os.path.join(tmp, "one.json.pt"))
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     flag = ["--device", "cpu" if device.type == "cpu" else "cuda"]
     argv = [*dp_argv(tmp, "dp", batch, steps), *flag]
-    t0 = time.perf_counter()
-    procs = []
-    for rank in range(DP_WORLD):
-        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
-               "WORLD_SIZE": str(DP_WORLD), "LOCAL_WORLD_SIZE": str(DP_WORLD),
-               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
-        code = "; ".join(filter(None, [
-            f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke", DP_CHILD_PRELUDE,
-            f"chip_smoke.dp_run({[*argv, '--distributed']!r}, "
-            f"{os.path.join(tmp, f'rank{rank}.json')!r}, "
-            f"{os.path.join(tmp, 'one.json.pt')!r})"]))
-        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
-    try:
-        outputs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, out in zip(procs, outputs):
-        assert p.returncode == 0, out[-4000:]
-    dp_seconds = time.perf_counter() - t0
+    dp_seconds = start_ranks(lambda rank: (
+        f"chip_smoke.dp_run({[*argv, '--distributed']!r}, "
+        f"{os.path.join(tmp, f'rank{rank}.json')!r}, "
+        f"{os.path.join(tmp, 'one.json.pt')!r})"), DP_WORLD)
     ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(DP_WORLD)]
     saved = [torch.load(os.path.join(tmp, f"rank{r}.json.pt")) for r in range(DP_WORLD)]
     params = [x["params"][-1] for x in saved]
@@ -4200,12 +4299,7 @@ def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
     for r in ranks[1:]:
         assert [s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
 
-    def deviation(got, want):
-        dev = [(got[k] - want[k]).abs() for k in want]
-        return (max(d.max().item() for d in dev),
-                sum((d <= 1e-6).sum().item() for d in dev) / sum(d.numel() for d in dev))
-
-    same = [deviation(saved[0]["params"][i], one_saved["params"][i]) for i in range(steps)]
+    same = [param_deviation(saved[0]["params"][i], one_saved["params"][i]) for i in range(steps)]
     emit({"phase": "dp_am_tsp50_readings", "loss_rel_err": loss_rel,
           "reward_rel_err": reward_rel,
           "param_max_abs_dev_and_share_within_1e-6_per_step": same})
@@ -4266,6 +4360,308 @@ def drive_dp_am_tsp50(device, tmp, batch=512, steps=4):
             "one_process_launches": one["launches"],
             "logs": logs, "dp_seconds": dp_seconds,
             "one_process_cli_seconds": one["cli_seconds"]}, launches, one["launches"]
+
+
+def drive_tp_am_tsp50(device, tmp, batch=512, steps=TP_STEPS):
+    """Tensor parallelism: `drive_dp_am_tsp50`'s configuration on ``TP_DP x
+    TP_MODEL`` processes on the one card (gloo), the policy split over the
+    model axis at the default ``min_dim`` (every Megatron pair, the column
+    rule and the gathered decoder at full width), each replaying its dp
+    rank's rows of the one-process run's first ``steps`` steps (its tours
+    and random stream, from ``tmp``, where `drive_dp_am_tsp50` left them).
+    Each step's global loss and mean reward and the whole parameters after
+    it against the one-process run at the dp holds; every process's whole
+    parameters and the model ranks' greedy tours equal to the bit; K2's
+    launches per rank per step (the replayed rollout and the baseline's
+    greedy one) at B ``batch / TP_DP``, N 50; the checkpoint written under
+    the mesh holds the whole last parameters; ms per step and the busy
+    share of one profiled step."""
+    one = json.load(open(os.path.join(tmp, "one.json")))
+    one_saved = torch.load(os.path.join(tmp, "one.json.pt"))
+    world = TP_DP * TP_MODEL
+    flag = ["--device", "cpu" if device.type == "cpu" else "cuda"]
+    argv = [*dp_argv(tmp, "tp", batch, steps), *flag, "--distributed"]
+    seconds = start_ranks(lambda rank: (
+        f"chip_smoke.dp_run({argv!r}, {os.path.join(tmp, f'tp{rank}.json')!r}, "
+        f"{os.path.join(tmp, 'one.json.pt')!r}, model={TP_MODEL})"), world)
+    ranks = [json.load(open(os.path.join(tmp, f"tp{r}.json"))) for r in range(world)]
+    saved = [torch.load(os.path.join(tmp, f"tp{r}.json.pt")) for r in range(world)]
+
+    for i in range(steps):   # the dp ranks' rows of the replayed tours, model rank 0's
+        assert torch.equal(torch.cat([saved[d * TP_MODEL]["tours"][i] for d in range(TP_DP)]),
+                           one_saved["tours"][i]), i
+    for d in range(TP_DP):   # the model ranks' own greedy tours
+        for j in range(1, TP_MODEL):
+            a, b = saved[d * TP_MODEL]["greedy_tours"], saved[d * TP_MODEL + j]["greedy_tours"]
+            assert len(a) == len(b) > steps and all(torch.equal(x, y) for x, y in zip(a, b)), d
+    per_step = {"pointer_step_single": 100, "pointer_step_grouped": 0}
+    for r in ranks:
+        assert len(r["steps"]) == steps and all(s["launches"] == per_step for s in r["steps"]), (
+            [s["launches"] for s in r["steps"]])
+        shapes = {tuple(json.loads(s))[:4] for s in r["launch_shapes"]}   # steps, evaluations
+        assert ("pointer_step_single", batch // TP_DP, None, 50) in shapes and all(
+            s[0] == "pointer_step_single" and s[3] == 50 for s in shapes), shapes
+        assert r["decisions"]["row"] and r["decisions"]["col"], r["decisions"]
+    losses = [[s["loss"] for s in r["steps"]] for r in ranks]
+    assert all(x == losses[0] for x in losses), losses
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(ranks[0]["steps"], one["steps"])]
+    reward_rel = [abs(a["metrics"]["reward"] - b["metrics"]["reward"]) / abs(b["metrics"]["reward"])
+                  for a, b in zip(ranks[0]["steps"], one["steps"])]
+    same = [param_deviation(saved[0]["params"][i], one_saved["params"][i]) for i in range(steps)]
+    emit({"phase": "tp_am_tsp50_readings", "loss_rel_err": loss_rel,
+          "reward_rel_err": reward_rel,
+          "param_max_abs_dev_and_share_within_1e-6_per_step": same})
+    for i in range(steps):
+        assert loss_rel[i] <= DP_SAME_RTOL and reward_rel[i] <= DP_SAME_RTOL, (
+            i, loss_rel, reward_rel)
+        assert same[i][0] <= DP_PARAM_ATOL and same[i][1] >= DP_CLOSE_SHARE, (i, same)
+    last = saved[0]["params"][-1]
+    for x in saved[1:]:
+        for k in last:
+            assert torch.equal(x["params"][-1][k], last[k]), f"processes differ in {k}"
+    ckpt = torch.load(os.path.join(argv[argv.index("--ckpt-dir") + 1], "last.pt"),
+                      map_location="cpu", weights_only=True)["state"]["policy"]
+    for k in last:
+        assert torch.equal(ckpt[k], last[k]), f"the checkpoint's {k} is not the whole parameter"
+
+    records = read_jsonl(argv[argv.index("--log-file") + 1])
+    rec = [r for r in records if "profile/wall_ms" in r][0]
+    median = statistics.median(s["ms"] for s in ranks[0]["steps"])
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    return {"model": "AM 128/8/3/512 batch norm, TSP-50, f32, rollout baseline behind its "
+                     "warm-up, Adam 1e-4, global batch 512",
+            "mesh": {"dp": TP_DP, "model": TP_MODEL}, "backend": "gloo (four ranks on one card)",
+            "decisions": ranks[0]["decisions"], "devices": [r["device"] for r in ranks],
+            "steps": steps, "replayed": "the one-process run's tours and random stream",
+            "tolerances": {"same_run_rtol": DP_SAME_RTOL, "close_share": DP_CLOSE_SHARE,
+                           "param_atol": DP_PARAM_ATOL},
+            "param_max_abs_dev_and_share_within_1e-6_per_step": same,
+            "loss_rel_err": loss_rel, "reward_rel_err": reward_rel, "losses": losses[0],
+            "greedy_rollouts_equal_across_model_ranks": len(saved[0]["greedy_tours"]),
+            "step_ms": {f"rank{r}": [s["ms"] for s in x["steps"]] for r, x in enumerate(ranks)},
+            "step_ms_median_rank0": median,
+            "profiled": {"steps": rec["profile/steps"], "wall_ms": rec["profile/wall_ms"],
+                         "device_busy_ms": rec["profile/device_busy_ms"],
+                         "busy_share_under_profiler":
+                             rec["profile/device_busy_ms"] / rec["profile/wall_ms"],
+                         "busy_share_of_median_step":
+                             rec["profile/device_busy_ms"] / rec["profile/steps"] / median},
+            "k2_launches_per_rank_per_step": per_step["pointer_step_single"],
+            "launch_shapes": ranks[0]["launch_shapes"],
+            "launches_by_rank": [r["launches"] for r in ranks], "seconds": seconds}, launches
+
+
+def mvmoe_algorithm(env, device):
+    """`train_mvmoe`'s MVMoE-POMO, weights from torch seed 1234."""
+    from rl4co_tpu_torch.decoding import DecodeSpec
+    from rl4co_tpu_torch.models.zoo.mvmoe import MVMoE_POMO
+
+    torch.manual_seed(1234)
+    return MVMoE_POMO(env, policy_kwargs=dict(device=device),
+                      train_spec=DecodeSpec(kind="sampling", tanh_clipping=10.0))
+
+
+def record_updates(algo, count):
+    """Record ``algo``'s first ``count`` updates: the tours of their rollouts,
+    the generator's state, the metrics and the parameters after each;
+    returns the dict it fills."""
+    rec = {"tours": [], "streams": [], "params": [], "loss": [], "reward": []}
+    inner_rollout, inner_update = algo.train_rollout, algo.update
+
+    def train_rollout(*args, **kwargs):
+        out = inner_rollout(*args, **kwargs)
+        if len(rec["tours"]) < count:
+            rec["tours"].append(out.actions.detach().clone())
+        return out
+
+    def update(*args, **kwargs):
+        metrics = inner_update(*args, **kwargs)
+        if len(rec["streams"]) < count:
+            rec["streams"].append(algo.generator.get_state())
+            rec["params"].append({k: p.detach().clone()
+                                  for k, p in algo.policy.named_parameters()})
+            rec["loss"].append(metrics["loss"].item())
+            rec["reward"].append(metrics["reward"].item())
+        return metrics
+
+    algo.train_rollout, algo.update = train_rollout, update
+    return rec
+
+
+def ep_run(reference_path, out_json, steps, model, batch=64, device="cuda"):
+    """A rank of the ``(dp 1, model)`` mesh of `drive_ep_mvmoe_cvrp50`:
+    `mvmoe_algorithm` with its experts split over the model axis, replaying
+    the one-process run's first ``steps`` updates (its tours, then its
+    random stream after each); writes per step the metrics, ms, launches,
+    the replayed rollout's log-likelihoods and the whole parameters."""
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.parallel import mesh as mesh_mod
+
+    ref = torch.load(reference_path)
+    _, device = mesh_mod.init_distributed(device)
+    try:
+        mesh = mesh_mod.make_mesh(dp=1, model=model)
+        algo = mvmoe_algorithm(get_env("cvrp", num_loc=50), device)
+        decisions = mesh_mod.shard_params_model_axis(algo.policy, mesh)
+        algo.reseed(61)
+        inner_rollout, inner_update = algo.train_rollout, algo.update
+        out = {"steps": [], "params": [], "log_likelihood": []}
+
+        def train_rollout(*args, **kwargs):
+            o = inner_rollout(*args, **kwargs)
+            out["log_likelihood"].append(o.log_likelihood.detach().cpu())
+            return o
+
+        algo.train_rollout = train_rollout
+        for i in range(steps):
+            algo.update = lambda instances, i=i: inner_update(instances, ref["tours"][i].to(device))
+            sync(device)
+            before, t0 = dict(LAUNCHES), time.perf_counter()
+            metrics = algo.train_step(batch, mesh=mesh)
+            sync(device)
+            out["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                 "loss": metrics["loss"].item(),
+                                 "reward": metrics["reward"].item(),
+                                 "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
+            algo.generator.set_state(ref["streams"][i])
+            whole = mesh_mod.full_state_dict(algo.policy)
+            out["params"].append({k: whole[k].cpu() for k, _ in algo.policy.named_parameters()})
+        out["decisions"] = {k: sum(v == k for v in decisions.values())
+                            for k in ("row", "col", "expert", "replicated")}
+        out["local_experts"] = algo.policy.pointer.project_out_moe.experts.Dense_0.kernel.shape[0]
+        torch.save(out, out_json)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def drive_ep_mvmoe_cvrp50(device, tmp, reference, steps=EP_STEPS, batch=64):
+    """Expert parallelism: `train_mvmoe`'s MVMoE-POMO (128/8/6/512, 4
+    experts, top-2, CVRP-50, ``batch`` x 50 starts) on ``EP_MODEL`` processes on the
+    card (gloo), two experts on each, replaying the one-process run's first
+    ``steps`` steps (``reference``: `record_updates` of `train_mvmoe`). Each
+    step's loss and mean reward and the whole parameters against that run at
+    the dp holds; both processes' log-likelihoods and whole parameters equal
+    to the bit; no pointer kernel (MVMoE's head is `pointer_logits` with an
+    MoE projection)."""
+    path = os.path.join(tmp, "mvmoe_reference.pt")
+    torch.save({k: [t.cpu() if isinstance(t, torch.Tensor) else t for t in v]
+                for k, v in reference.items() if k in ("tours", "streams")}, path)
+    seconds = start_ranks(lambda rank: (
+        f"chip_smoke.ep_run({path!r}, {os.path.join(tmp, f'ep{rank}.pt')!r}, {steps}, "
+        f"{EP_MODEL}, {batch}, {'cpu' if device.type == 'cpu' else 'cuda'!r})"), EP_MODEL)
+    ranks = [torch.load(os.path.join(tmp, f"ep{r}.pt")) for r in range(EP_MODEL)]
+    for r in ranks[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r["log_likelihood"],
+                                                      ranks[0]["log_likelihood"]))
+        for k in ranks[0]["params"][-1]:
+            assert torch.equal(r["params"][-1][k], ranks[0]["params"][-1][k]), k
+        assert [s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
+    assert all(r["local_experts"] == 4 // EP_MODEL for r in ranks)
+    assert ranks[0]["decisions"]["expert"] > 0, ranks[0]["decisions"]
+    none = {"pointer_step_single": 0, "pointer_step_grouped": 0}
+    assert all(s["launches"] == none for r in ranks for s in r["steps"])
+    steps_0 = ranks[0]["steps"]
+    loss_rel = [abs(s["loss"] - ref) / abs(ref) for s, ref in zip(steps_0, reference["loss"])]
+    reward_rel = [abs(s["reward"] - ref) / abs(ref)
+                  for s, ref in zip(steps_0, reference["reward"])]
+    same = [param_deviation(ranks[0]["params"][i],
+                            {k: v.cpu() for k, v in reference["params"][i].items()})
+            for i in range(steps)]
+    emit({"phase": "ep_mvmoe_cvrp50_readings", "loss_rel_err": loss_rel,
+          "reward_rel_err": reward_rel,
+          "param_max_abs_dev_and_share_within_1e-6_per_step": same})
+    for i in range(steps):
+        assert loss_rel[i] <= DP_SAME_RTOL and reward_rel[i] <= DP_SAME_RTOL, (
+            i, loss_rel, reward_rel)
+        assert same[i][0] <= DP_PARAM_ATOL and same[i][1] >= DP_CLOSE_SHARE, (i, same)
+    return {"model": "MVMoE-POMO 128/8/6/512, 4 experts top-2, instance norm, CVRP-50, "
+                     "64 x 50 starts, f32 (train_mvmoe's)",
+            "mesh": {"dp": 1, "model": EP_MODEL}, "backend": "gloo (two ranks on one card)",
+            "decisions": ranks[0]["decisions"], "experts_per_rank": ranks[0]["local_experts"],
+            "steps": steps, "replayed": "train_mvmoe's tours and random stream",
+            "tolerances": {"same_run_rtol": DP_SAME_RTOL, "close_share": DP_CLOSE_SHARE,
+                           "param_atol": DP_PARAM_ATOL},
+            "param_max_abs_dev_and_share_within_1e-6_per_step": same,
+            "loss_rel_err": loss_rel, "reward_rel_err": reward_rel,
+            "losses": [s["loss"] for s in steps_0], "one_process_losses": reference["loss"],
+            "step_ms": {f"rank{r}": [s["ms"] for s in x["steps"]] for r, x in enumerate(ranks)},
+            "seconds": seconds}, none
+
+
+def drive_eval_oom_halving(device, count=8192, keep_free=OOM_KEEP_FREE):
+    """`evaluate_policy` with ``batch_size=None`` (AM 128/8/3/512 batch norm,
+    seed-0 weights, greedy on ``count`` TSP-100 instances: the JAX sizing
+    picks 8192) while one tensor holds all but ``keep_free`` bytes of the
+    card's free memory: at least one real CUDA out-of-memory error is caught
+    and the dispatch halved; then, the memory released, a run at the size
+    that ran gives the same rewards."""
+    from rl4co_tpu_torch.data.io import load_instances_npz
+    from rl4co_tpu_torch.envs import get_env
+    from rl4co_tpu_torch.ops.pointer_kernel import LAUNCHES
+    from rl4co_tpu_torch.tasks import eval as teval
+
+    locs = load_instances_npz(os.path.join(ROOT, "data", "tsp", "test100_seed1234.npz"))["locs"]
+    inst = {"locs": locs[:count]}
+    env = get_env("tsp", num_loc=100)
+    policy = make_policies(device)["kernel"]
+    caught = []
+    inner = teval._is_device_oom
+
+    def is_oom(e):
+        caught.append(f"{type(e).__name__}: {str(e)[:120]}")
+        return inner(e)
+
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        hog = torch.empty(max(free - keep_free, 0), dtype=torch.uint8, device=device)
+        held = hog.numel()
+    else:   # a CPU rehearsal: the first two dispatches' rollouts raise CUDA's text
+        free = total = held = 0
+        hog, inner_rollout = None, teval.rollout
+
+        def rollout(*args, **kwargs):
+            if len(caught) < 2:
+                raise RuntimeError("CUDA error: out of memory")
+            return inner_rollout(*args, **kwargs)
+
+        teval.rollout = rollout
+    teval._is_device_oom = is_oom
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        got = teval.evaluate_policy(env, policy, inst, "greedy", device=device)
+    finally:
+        teval._is_device_oom = inner
+        if hog is None:
+            teval.rollout = inner_rollout
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    del hog
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    assert got.get("oom_halvings", 0) >= 1 and len(caught) == got["oom_halvings"], (got, caught)
+    assert launches["pointer_step_single"] > 0, launches
+    want = teval.evaluate_policy(env, policy, inst, "greedy", batch_size=got["batch_size"],
+                                 device=device)
+    assert np.array_equal(got["rewards"], want["rewards"])
+    assert np.isfinite(got["rewards"]).all() and got["rewards"].shape == (count,)
+    return {"model": "AM 128/8/3/512 batch norm, seed-0 weights, TSP-100 greedy",
+            "instances": count, "card_free_bytes": free, "card_total_bytes": total,
+            "held_bytes": held,
+            "sizing_batch_size": got["batch_size"] << got["oom_halvings"],
+            "oom_halvings": got["oom_halvings"],
+            "batch_size_that_ran": got["batch_size"], "errors_caught": caught,
+            "mean_cost": -float(got["mean_reward"]), "seconds_with_retries": seconds,
+            "rewards_equal_a_run_at_that_size": True, "launches": launches}, launches
 
 
 def drive_reptile_pomo_tsp(device, epochs=REPTILE_EPOCHS, steps=REPTILE_STEPS,
@@ -4625,7 +5021,7 @@ def main() -> int:
     emit({"phase": "train_bf16", "card": smi, **report})
     report, symnco_launches = train_symnco(env, locs, device)
     emit({"phase": "train_symnco", "card": smi, **report})
-    report, mvmoe_launches = train_mvmoe(cvrp_env, cvrp, device)
+    report, mvmoe_launches, mvmoe_record = train_mvmoe(cvrp_env, cvrp, device)
     emit({"phase": "train_mvmoe", "card": smi, **report})
     report, polynet_launches = train_polynet(env, locs, device)
     emit({"phase": "train_polynet", "card": smi, **report})
@@ -4828,11 +5224,26 @@ def main() -> int:
 
     # 16. infrastructure: data-parallel AM training over two processes on the
     # card (the train CLI with --distributed, against its one-process run),
-    # Reptile over POMO on TSP-20/50/100, remat and the fused rollout baseline
+    # then tensor parallelism (four processes as dp 2 x model 2, replaying that
+    # run), expert parallelism (MVMoE-POMO's experts over two processes,
+    # replaying `train_mvmoe`) and the evaluation's dispatch sizing under a
+    # real out-of-memory error; Reptile over POMO on TSP-20/50/100, remat and
+    # the fused rollout baseline
     t_infra = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         report, dp_launches, dp_one_launches = drive_dp_am_tsp50(device, tmp)
         emit({"phase": "dp_am_tsp50", "card": smi, **report})
+        # tensor and expert parallelism over the model axis, and the
+        # evaluation's dispatch sizing under a real out-of-memory error
+        t_tp = time.perf_counter()
+        report, tp_launches = drive_tp_am_tsp50(device, tmp)
+        emit({"phase": "tp_am_tsp50", "card": smi, **report})
+        report, ep_launches = drive_ep_mvmoe_cvrp50(device, tmp, mvmoe_record)
+        emit({"phase": "ep_mvmoe_cvrp50", "card": smi, **report})
+    del mvmoe_record
+    report, oom_launches = drive_eval_oom_halving(device)
+    emit({"phase": "eval_oom_halving", "card": smi, **report})
+    tp_seconds = time.perf_counter() - t_tp
     report, reptile_launches = drive_reptile_pomo_tsp(device)
     emit({"phase": "reptile_pomo_tsp", "card": smi, **report})
     report, remat_launches, fused_launches = drive_remat_fused_am_tsp50(device)
@@ -4948,9 +5359,16 @@ def main() -> int:
                                 "pointer_step_grouped"),
                                ("training_remat_am_tsp50", remat_launches, "pointer_step_single"),
                                ("training_fused_baseline_am_tsp50", fused_launches,
+                                "pointer_step_single"),
+                               ("training_tp_am_tsp50_four_ranks", tp_launches,
+                                "pointer_step_single"),
+                               ("evaluation_oom_halving_am_tsp100", oom_launches,
                                 "pointer_step_single")):
         assert counts[name] > 0, (path, counts)
         by_path[path] = counts
+    # expert parallelism: MVMoE's pointer head reaches no kernel
+    assert sum(ep_launches.values()) == 0, ep_launches
+    by_path["training_ep_mvmoe_cvrp50_two_ranks"] = ep_launches
     # the examples: their kernels held in `drive_examples`
     by_path.update({f"examples_{name}": counts for name, counts in example_launches.items()})
     for name in MAIN_SHAPES:
@@ -4972,6 +5390,7 @@ def main() -> int:
           "ppo_a2c_and_envs_10b_phases_seconds": ppo_seconds,
           "eas_phase_seconds": eas_seconds, "improvement_trio_phase_seconds": trio_seconds,
           "zoo_phases_seconds": zoo_seconds, "infrastructure_phases_seconds": infra_seconds,
+          "tp_ep_and_eval_sizing_phases_seconds": tp_seconds,
           "examples_phase_seconds": examples_seconds})
     print(smi, flush=True)
     emit({"kernels": kernels})

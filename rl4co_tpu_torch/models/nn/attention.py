@@ -18,11 +18,13 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from rl4co_tpu_torch.models.nn.ops import TPDense
 from rl4co_tpu_torch.ops.pointer_kernel import (
     fused_pointer_logits,
     mask_to_neg_bias,
     pointer_logits_plain,
 )
+from rl4co_tpu_torch.parallel.mesh import tp_param
 
 MASK_VALUE = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
 
@@ -56,21 +58,34 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, s, h * dh)
 
 
-class MultiHeadAttention(nn.Module):
+class _SplitHeads:
+    """Attention whose projections form a Megatron pair: under tensor
+    parallelism each model rank computes ``local_heads`` whole heads."""
+
+    def tp_local(self, model: int) -> None:
+        """Run ``num_heads / model`` heads on this rank (its share of the
+        column-split projections' features, head by head)."""
+        self.local_heads = self.num_heads // model
+
+
+class MultiHeadAttention(_SplitHeads, nn.Module):
     """Self-attention MHA: one ``Wqkv`` [D -> 3D] split into q, k, v in that
-    order, and ``out_proj``, both with bias unless ``use_bias=False``."""
+    order, and ``out_proj``, both with bias unless ``use_bias=False``; a
+    Megatron pair (``Wqkv`` split by whole heads of q, k and v)."""
+
+    tp_pairs = ((("Wqkv",), "out_proj", (3,)),)
 
     def __init__(self, embed_dim: int, num_heads: int = 8, use_bias: bool = True):
         super().__init__()
-        self.num_heads = num_heads
-        self.Wqkv = nn.Linear(embed_dim, 3 * embed_dim, bias=use_bias)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.num_heads = self.local_heads = num_heads
+        self.Wqkv = TPDense(embed_dim, 3 * embed_dim, bias=use_bias, tp_role="col")
+        self.out_proj = TPDense(embed_dim, embed_dim, bias=use_bias, tp_role="row")
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self.Wqkv(x).chunk(3, dim=-1)
-        q = _split_heads(q, self.num_heads)
-        k = _split_heads(k, self.num_heads)
-        v = _split_heads(v, self.num_heads)
+        q = _split_heads(q, self.local_heads)
+        k = _split_heads(k, self.local_heads)
+        v = _split_heads(v, self.local_heads)
         if mask is not None and mask.ndim == x.ndim - 1:
             # [B, S] key-padding mask -> [B, 1, 1, S]
             mask = mask[..., None, None, :]
@@ -78,24 +93,27 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(_merge_heads(out))
 
 
-class MultiHeadCrossAttention(nn.Module):
+class MultiHeadCrossAttention(_SplitHeads, nn.Module):
     """Cross-attention MHA: queries from ``q_input`` through ``Wq`` [D -> D],
     keys and values from ``kv_input`` through ``Wkv`` [D -> 2D] (split in
     that order), and ``out_proj``; no bias unless ``use_bias=True``. A
     ``[B, S]`` mask (one fewer axis than ``q_input``) is a key-padding mask
-    for every head and query; any other broadcasts to ``[B, H, L, S]``."""
+    for every head and query; any other broadcasts to ``[B, H, L, S]``.
+    ``Wq`` and ``Wkv`` (by whole heads of k and v) pair with ``out_proj``."""
+
+    tp_pairs = ((("Wq", "Wkv"), "out_proj", (1, 2)),)
 
     def __init__(self, embed_dim: int, num_heads: int = 8, use_bias: bool = False):
         super().__init__()
-        self.num_heads = num_heads
-        self.Wq = nn.Linear(embed_dim, embed_dim, bias=use_bias)
-        self.Wkv = nn.Linear(embed_dim, 2 * embed_dim, bias=use_bias)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.num_heads = self.local_heads = num_heads
+        self.Wq = TPDense(embed_dim, embed_dim, bias=use_bias, tp_role="col")
+        self.Wkv = TPDense(embed_dim, 2 * embed_dim, bias=use_bias, tp_role="col")
+        self.out_proj = TPDense(embed_dim, embed_dim, bias=use_bias, tp_role="row")
 
     def forward(self, q_input: torch.Tensor, kv_input: torch.Tensor,
                 cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        q = _split_heads(self.Wq(q_input), self.num_heads)
-        k, v = (_split_heads(t, self.num_heads) for t in self.Wkv(kv_input).chunk(2, dim=-1))
+        q = _split_heads(self.Wq(q_input), self.local_heads)
+        k, v = (_split_heads(t, self.local_heads) for t in self.Wkv(kv_input).chunk(2, dim=-1))
         if cross_mask is not None and cross_mask.ndim == q_input.ndim - 1:
             cross_mask = cross_mask[..., None, None, :]
         out = scaled_dot_product_attention(q, k, v, cross_mask)
@@ -149,7 +167,12 @@ class PointerAttention(nn.Module):
     adds ``project_out_bias``) nor an unmasked glimpse (``mask_inner=False``):
     with ``impl="kernel"`` they raise, as the JAX package's Pallas path
     refuses them; with ``impl="plain"`` they compute through `pointer_logits`.
+    Split over a mesh's ``model`` axis, ``project_out_kernel`` is gathered
+    whole before each step, and the kernel runs on whole tensors on every
+    model rank.
     """
+
+    tp_gathered = ("project_out_kernel",)
 
     def __init__(self, embed_dim: int, num_heads: int = 8, impl: str = "kernel",
                  mask_inner: bool = True, out_bias: bool = False):
@@ -175,9 +198,10 @@ class PointerAttention(nn.Module):
         logit_k: torch.Tensor,
         mask: torch.Tensor,       # [B, N] or [B, L, N], True = feasible
     ) -> torch.Tensor:
+        w_out = tp_param(self, "project_out_kernel")
         if self.project_out_bias is not None or not self.mask_inner:
             def project_out(x):
-                y = x @ self.project_out_kernel
+                y = x @ w_out
                 return y if self.project_out_bias is None else y + self.project_out_bias
 
             def step(*args):
@@ -191,7 +215,7 @@ class PointerAttention(nn.Module):
         return step(
             query.contiguous(), glimpse_k, glimpse_v, logit_k,
             mask_to_neg_bias(mask).contiguous(),
-            self.project_out_kernel, self.num_heads,
+            w_out, self.num_heads,
         )
 
 

@@ -16,6 +16,12 @@ Behaviours of the JAX package kept as they are:
   parameters): the port has no noisy gating;
 - the load-balancing value (`MoE.aux_loss`) is sown there and read by
   nothing; here it is a method, and no loss adds it.
+
+Expert parallelism (`rl4co_tpu_torch.parallel.mesh.shard_params_model_axis`
+splits the experts' leading axis over a mesh's ``model`` axis): each model
+rank holds ``E / model`` experts and runs them on every token, the gate runs
+whole on every rank, and each rank's gate-weighted mix of its own experts is
+summed over the model ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from rl4co_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 class StackedDense(nn.Module):
@@ -72,6 +80,13 @@ class MoE(nn.Module):
         self.loss_coef = loss_coef
         self.w_gate = nn.Parameter(torch.zeros(in_dim, num_experts))
         self.experts = ExpertMLP(num_experts, in_dim, output_dim, num_neurons)
+        self.tp_mesh = None   # set when the experts are split over a mesh's model axis
+
+    def tp_experts(self) -> list:
+        """``(module, parameter name)`` of every expert parameter: what
+        expert parallelism splits along the leading axis."""
+        return [(layer, name) for layer in self.experts.children()
+                for name in ("kernel", "bias")]
 
     def gates(self, flat: torch.Tensor) -> torch.Tensor:
         """Gate weights ``[T, E]`` of tokens ``flat [T, in]``: a softmax over
@@ -91,5 +106,14 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
-        mixed = torch.einsum("te,etd->td", self.gates(flat), self.experts(flat))
+        gates = self.gates(flat)
+        mesh = self.tp_mesh
+        if mesh is None:
+            mixed = torch.einsum("te,etd->td", gates, self.experts(flat))
+        else:   # this rank's experts on every token, their mix summed over the ranks
+            local = self.experts.Dense_0.kernel.shape[0]
+            lo = mesh.model_rank * local
+            gates = copy_to_model(gates, mesh)[:, lo:lo + local]
+            mixed = reduce_from_model(torch.einsum(
+                "te,etd->td", gates, self.experts(copy_to_model(flat, mesh))), mesh)
         return mixed.reshape(*x.shape[:-1], self.output_dim)

@@ -21,7 +21,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rl4co_tpu_torch.parallel.mesh import active_shard, all_reduce_sum, global_count
+from rl4co_tpu_torch.parallel.mesh import (
+    active_shard,
+    all_reduce_sum,
+    copy_to_model,
+    gather_from_model,
+    global_count,
+    local_share,
+    reduce_from_model,
+)
 
 EPSILON = 1e-5
 
@@ -34,6 +42,55 @@ ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
     "identity": lambda x: x,
 }
+
+
+class TPDense(nn.Linear):
+    """`nn.Linear` carrying a tensor-parallel role: ``tp_role`` is its place
+    in a Megatron pair, ``"col"`` (the first layer: output features split
+    over the mesh's ``model`` axis), ``"row"`` (the second: input features
+    split, one reduction per block) or ``"none"``. The parameters are an
+    ``nn.Linear``'s, so checkpoints do not see the role;
+    `policy_tp_roles` collects the roles and
+    `rl4co_tpu_torch.parallel.mesh.shard_params_model_axis` reads them.
+
+    After that placement ``tp_mode`` says what the layer computes on its
+    share of the weight: ``"col_local"`` its share of the output features
+    (of each of ``tp_groups`` blocks, a fused QKV's three), for the
+    row-split layer of its pair; ``"col_gather"`` the whole output, gathered;
+    ``"row"`` the sum over the model ranks of its partial products. The bias
+    stays whole, added once."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 tp_role: str = "none", device=None, dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+        self.tp_role = tp_role
+        self.tp_mode = None
+
+    @classmethod
+    def sharing(cls, linear: nn.Linear) -> "TPDense":
+        """A `TPDense` holding ``linear``'s parameter objects."""
+        new = cls(linear.in_features, linear.out_features, bias=linear.bias is not None,
+                  device="meta")
+        new.weight = linear.weight
+        new.bias = linear.bias
+        return new
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode is None:
+            return F.linear(x, self.weight, self.bias)
+        mesh = self.tp_mesh
+        if self.tp_mode == "row":
+            y = reduce_from_model(F.linear(x, self.weight), mesh)
+            return y if self.bias is None else y + self.bias
+        x = copy_to_model(x, mesh)
+        if self.tp_mode == "col_gather":
+            y = gather_from_model(F.linear(x, self.weight), mesh)
+            return y if self.bias is None else y + self.bias
+        bias = self.bias
+        if bias is not None:   # its gradient is every model rank's share's
+            bias = local_share(copy_to_model(bias, mesh), 0, self.tp_groups, mesh.model,
+                               mesh.model_rank)
+        return F.linear(x, self.weight, bias)
 
 
 class Normalization(nn.Module):
@@ -86,12 +143,15 @@ class Normalization(nn.Module):
 class TransformerFFN(nn.Module):
     """Feed-forward block used inside encoder layers: Linear, ReLU, Linear.
     The sub-module names are those of the JAX package's parameter tree
-    (``Dense_0``, ``Dense_1``)."""
+    (``Dense_0``, ``Dense_1``); they are a Megatron pair (``col``, ``row``)."""
+
+    # (layers split by columns, the layer split by rows, blocks of each feeder)
+    tp_pairs = ((("Dense_0",), "Dense_1", (1,)),)
 
     def __init__(self, embed_dim: int, feedforward_hidden: int = 512):
         super().__init__()
-        self.Dense_0 = nn.Linear(embed_dim, feedforward_hidden)
-        self.Dense_1 = nn.Linear(feedforward_hidden, embed_dim)
+        self.Dense_0 = TPDense(embed_dim, feedforward_hidden, tp_role="col")
+        self.Dense_1 = TPDense(feedforward_hidden, embed_dim, tp_role="row")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(torch.relu(self.Dense_0(x)))

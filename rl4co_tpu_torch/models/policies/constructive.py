@@ -84,6 +84,25 @@ class ConstructivePolicy(nn.Module):
         return fn(*args)
 
 
+def policy_tp_roles(policy: nn.Module, env: Optional[Env] = None, key=None) -> dict:
+    """The tensor-parallel role markers of ``policy`` (each `TPDense`'s
+    ``tp_role``) as the JAX package's marker tree:
+    ``{"encoder_net": {"layer_0": {"mha": {"out_proj": {"tp_role": "row"}, ...}}}}``,
+    for `rl4co_tpu_torch.parallel.mesh.shard_params_model_axis(roles=...)`.
+    ``env`` and ``key`` serve the JAX package's initialisation run and are
+    not needed: a port module holds its layers from construction."""
+    from rl4co_tpu_torch.models.nn.ops import TPDense
+
+    roles: dict = {}
+    for name, mod in policy.named_modules():
+        if isinstance(mod, TPDense):
+            node = roles
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            node["tp_role"] = mod.tp_role
+    return roles
+
+
 def instances_to_device(instances: dict, device: torch.device) -> dict:
     """numpy arrays or tensors -> tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in instances.items()}

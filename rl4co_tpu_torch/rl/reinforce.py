@@ -15,7 +15,13 @@ With a mesh (`rl4co_tpu_torch.parallel.mesh`), `train_step` generates the
 global batch on every rank, keeps this rank's rows and runs `update` on them
 inside `sharded`: batch norm, the baselines' means, the draws and the
 metrics are global, and the gradients are averaged across ranks before the
-optimiser step, so every rank takes the one-device run's step.
+optimiser step, so every rank takes the one-device run's step. On a mesh
+with a ``model`` axis, after `shard_params_model_axis` split the policy, the
+model ranks of a dp rank run the same rows: a split weight's gradient stays
+on its rank and is averaged over the dp ranks, clipping takes the norm over
+every share, and `state_dict` holds the whole policy, optimiser state and
+baseline weights (gathered from the model ranks, which must all call it),
+which `load_state_dict` splits again.
 
 ``fused_rollout_baseline`` (rollout baseline without its warm-up, as in the
 JAX package) computes the baseline in a second rollout: the snapshot's at
@@ -42,9 +48,14 @@ from rl4co_tpu_torch.models.policies.constructive import (
 from rl4co_tpu_torch.parallel.mesh import (
     Mesh,
     active_shard,
+    full_optimizer_state,
+    full_state_dict,
     global_means,
+    load_full_state_dict,
+    local_optimizer_state,
     shard_batch,
     sharded,
+    tp_parameters,
 )
 from rl4co_tpu_torch.rl.baselines import (
     Baseline,
@@ -237,10 +248,13 @@ class REINFORCE(ConstructiveAlgorithm):
         loss, (metrics, out) = self.loss(instances, replay_actions)
         loss.backward()
         shard = active_shard()
+        grad_norm = None
         if shard is not None:
-            shard.mesh.average_gradients(self.policy.parameters())
+            shard.mesh.average_gradients(self.policy)
             metrics = global_means(metrics)
-        self.optimizer.step()
+            if shard.mesh.model > 1 and self.optimizer.grad_clip is not None:
+                grad_norm = shard.mesh.grad_norm(self.policy)
+        self.optimizer.step(grad_norm=grad_norm)
         self.baseline_state = self.baseline.update_step(
             self.baseline_state, out.reward.detach())
         self.step += 1
@@ -257,29 +271,39 @@ class REINFORCE(ConstructiveAlgorithm):
 
     def state_dict(self) -> dict:
         """Policy, optimiser (with its schedule's step index), baseline state
-        (with the snapshot's weights) and step count."""
+        (with the snapshot's weights) and step count; whole, as one process
+        holds them, when the policy is split over a mesh's model axis."""
         bl = self.baseline_state
+        optimizer = self.optimizer.state_dict()
+        if tp_parameters(self.policy):
+            optimizer["inner"] = full_optimizer_state(self.optimizer.inner, self.policy)
         return {
-            "policy": self.policy.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "policy": full_state_dict(self.policy),
+            "optimizer": optimizer,
             "baseline": {
                 "value": bl.value,
                 "epoch": bl.epoch,
-                "bl_policy": None if bl.bl_policy is None else bl.bl_policy.state_dict(),
+                "bl_policy": None if bl.bl_policy is None else full_state_dict(bl.bl_policy),
             },
             "step": self.step,
         }
 
     def load_state_dict(self, state: dict) -> None:
-        self.policy.load_state_dict(state["policy"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Restore `state_dict`'s tree, each model rank taking its share of
+        a split policy's weights and optimiser state."""
+        load_full_state_dict(self.policy, state["policy"])
+        optimizer = state["optimizer"]
+        if tp_parameters(self.policy):
+            optimizer = {**optimizer, "inner": local_optimizer_state(
+                self.optimizer.inner, self.policy, optimizer["inner"])}
+        self.optimizer.load_state_dict(optimizer)
         saved = state["baseline"]
         bl_policy = self.baseline_state.bl_policy
         if (bl_policy is None) != (saved["bl_policy"] is None):
             raise ValueError("the checkpoint's baseline does not match this algorithm's")
         if bl_policy is not None:
             bl_policy = snapshot_policy(self.policy)
-            bl_policy.load_state_dict(saved["bl_policy"])
+            load_full_state_dict(bl_policy, saved["bl_policy"])
         value = saved["value"]
         self.baseline_state = BaselineState(
             value=None if value is None else value.to(self.device),

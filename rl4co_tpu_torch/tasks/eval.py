@@ -10,11 +10,22 @@ generator; ``beam_search``: width ``num_starts``, by default
 ``env.get_num_starts()``, best beam per instance.)
 
 Each is one sweep (augment → rollout → group-max) batched over the dataset.
+
+Dispatch sizing is the JAX package's: ``batch_size=None`` takes the
+reference's ceiling of 8192 trajectories (``RL4CO_EVAL_BATCH_CEIL`` raises
+it for multistart and augmented dispatches; never more than 8192
+instances), capped by a rough estimate of the activations against a device
+memory budget (`_hbm_instance_cap`; ``RL4CO_EVAL_HBM_BUDGET``, default 8e9
+bytes). A sweep that runs out of device memory is redone whole at half the
+dispatch size, at most 8 times (``oom_halvings`` in the result); any other
+error raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import time
 from typing import Callable, Optional
 
@@ -88,11 +99,16 @@ def evaluate_policy(
     """Evaluate ``policy`` on ``instances`` (numpy arrays or tensors
     ``[n, ...]``); returns per-instance best rewards.
 
-    ``batch_size=None`` dispatches ``min(8192 // (starts·augments), 8192)``
-    instances at a time (beams count as starts). With batch normalisation an
+    ``batch_size=None`` dispatches ``min(ceiling // (starts·augments), 8192)``
+    instances at a time (beams count as starts; the ceiling is 8192 or
+    ``RL4CO_EVAL_BATCH_CEIL``), no more than `_hbm_instance_cap` allows for
+    instances with ``locs [n, N, 2]``. With batch normalisation an
     instance's result depends on the instances that share its dispatch, so the
     dispatch size is part of the protocol. A ragged tail is padded up to the
-    dispatch size with the first rows of the set.
+    dispatch size with the first rows of the set. A sweep that runs out of
+    device memory (`_is_device_oom`) is redone from the start, with the
+    generator's state it began with, at half the dispatch size, up to 8
+    times; the result then holds ``oom_halvings`` and the size that ran.
 
     ``generator``: source of the sampling draws, on ``device`` (default: a
     new one seeded with 1234). ``return_actions``: also return the per-instance best
@@ -119,7 +135,11 @@ def evaluate_policy(
          else max(m.num_samples, 1))
     a = max(m.num_augment, 1)
     if batch_size is None:
-        batch_size = max(1, min(8192 // max(1, s * a), 8192))
+        ceil = int(os.environ.get("RL4CO_EVAL_BATCH_CEIL", 8192))
+        batch_size = max(1, min(ceil // max(1, s * a), 8192))
+        n_nodes = _instance_num_nodes(instances)
+        if n_nodes:
+            batch_size = max(1, min(batch_size, _hbm_instance_cap(policy, n_nodes, s, a)))
 
     spec = DecodeSpec(
         kind="sampling" if (m.decode == "sampling" and not m.multistart) else m.decode,
@@ -153,61 +173,84 @@ def evaluate_policy(
             r, acts = _best_of(r, acts, a)            # [B]
         return r, acts
 
-    def pad_rows(x: torch.Tensor) -> torch.Tensor:
-        """First ``batch_size`` rows, tiled up for tiny instance sets."""
-        x = x[:batch_size]
-        if x.shape[0] < batch_size:
-            reps = -(-batch_size // x.shape[0])
-            x = x.repeat(reps, *([1] * (x.ndim - 1)))[:batch_size]
-        return x
-
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    rewards, actions = [], []
+    def sweep(batch_size: int):
+        """One pass over the set at a fixed dispatch size."""
 
-    def consume(r, acts, batch, keep):
-        rewards.append(r.cpu().numpy()[:keep])
-        if return_actions:
-            acts = acts.cpu().numpy()[:keep]
-            actions.append(acts)
-            if check_solutions:
-                for i in range(keep):
-                    one = {k: v[i] for k, v in batch.items()}
-                    env.check_solution_validity(one, acts[i])
+        def pad_rows(x: torch.Tensor) -> torch.Tensor:
+            """First ``batch_size`` rows, tiled up for tiny instance sets."""
+            x = x[:batch_size]
+            if x.shape[0] < batch_size:
+                reps = -(-batch_size // x.shape[0])
+                x = x.repeat(reps, *([1] * (x.ndim - 1)))[:batch_size]
+            return x
 
-    warmup_s = 0.0
-    if warmup:
-        t_warm = time.perf_counter()
-        run_batch({k: pad_rows(v) for k, v in instances.items()})
+        rewards, actions = [], []
+
+        def consume(r, acts, batch, keep):
+            rewards.append(r.cpu().numpy()[:keep])
+            if return_actions:
+                acts = acts.cpu().numpy()[:keep]
+                actions.append(acts)
+                if check_solutions:
+                    for i in range(keep):
+                        one = {k: v[i] for k, v in batch.items()}
+                        env.check_solution_validity(one, acts[i])
+
+        warmup_s = 0.0
+        if warmup:
+            t_warm = time.perf_counter()
+            run_batch({k: pad_rows(v) for k, v in instances.items()})
+            sync()
+            warmup_s = time.perf_counter() - t_warm
+
         sync()
-        warmup_s = time.perf_counter() - t_warm
+        t0 = time.perf_counter()
+        for start in range(0, n - batch_size + 1, batch_size):
+            batch = {k: v[start : start + batch_size] for k, v in instances.items()}
+            r, acts = run_batch(batch)
+            consume(r, acts, batch, batch_size)
+            if progress is not None:
+                progress(start + batch_size, n)
+        # ragged tail: padded up to batch_size with the first rows of the set (the
+        # padding rows enter the batch-norm statistics, so this is part of the
+        # protocol, not a convenience)
+        done_n = (n // batch_size) * batch_size
+        if done_n < n:
+            tail = n - done_n
+            batch = {
+                k: pad_rows(torch.cat([v[done_n:], v[: batch_size - tail]], dim=0))
+                for k, v in instances.items()
+            }
+            r, acts = run_batch(batch)
+            consume(r, acts, batch, tail)
+            if progress is not None:
+                progress(n, n)
+        sync()
+        return rewards, actions, time.perf_counter() - t0, warmup_s
 
-    sync()
-    t0 = time.perf_counter()
-    for start in range(0, n - batch_size + 1, batch_size):
-        batch = {k: v[start : start + batch_size] for k, v in instances.items()}
-        r, acts = run_batch(batch)
-        consume(r, acts, batch, batch_size)
-        if progress is not None:
-            progress(start + batch_size, n)
-    # ragged tail: padded up to batch_size with the first rows of the set (the
-    # padding rows enter the batch-norm statistics, so this is part of the
-    # protocol, not a convenience)
-    done_n = (n // batch_size) * batch_size
-    if done_n < n:
-        tail = n - done_n
-        batch = {
-            k: pad_rows(torch.cat([v[done_n:], v[: batch_size - tail]], dim=0))
-            for k, v in instances.items()
-        }
-        r, acts = run_batch(batch)
-        consume(r, acts, batch, tail)
-        if progress is not None:
-            progress(n, n)
-    sync()
-    dt = time.perf_counter() - t0
+    # out of device memory: the whole sweep again at half the dispatch size,
+    # from the generator's state at the start
+    start_state = generator.get_state()
+    halvings = 0
+    while True:
+        try:
+            rewards, actions, dt, warmup_s = sweep(batch_size)
+            break
+        except Exception as e:  # noqa: BLE001 — anything but an OOM raises
+            if not _is_device_oom(e) or batch_size <= 1 or halvings >= 8:
+                raise
+        halvings += 1
+        batch_size = max(1, batch_size // 2)
+        logging.getLogger(__name__).warning(
+            "eval batch out of device memory; retrying at batch_size=%d (halving %d)",
+            batch_size, halvings)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        generator.set_state(start_state)
 
     rewards = np.concatenate(rewards)
     res = {
@@ -219,6 +262,40 @@ def evaluate_policy(
         "method": method,
         "batch_size": batch_size,
     }
+    if halvings:
+        res["oom_halvings"] = halvings
     if return_actions:
         res["actions"] = np.concatenate(actions)
     return res
+
+
+def _is_device_oom(e: BaseException) -> bool:
+    """Whether ``e`` is the device running out of memory: PyTorch's
+    `torch.OutOfMemoryError` or CUDA's "out of memory". A kernel's refused
+    launch or a failed build is not."""
+    return isinstance(e, torch.OutOfMemoryError) or (
+        isinstance(e, RuntimeError) and "out of memory" in str(e))
+
+
+def _instance_num_nodes(instances: dict) -> int:
+    """Node count N from a ``[B, N, 2]``-shaped ``locs`` (0 if none)."""
+    locs = instances.get("locs")
+    if locs is not None and len(locs.shape) == 3:
+        return int(locs.shape[1])
+    return 0
+
+
+def _hbm_instance_cap(policy, n: int, starts: int, augs: int,
+                      budget_bytes: Optional[float] = None) -> int:
+    """Instances per dispatch that keep the JAX package's rough activation
+    estimate within the device memory budget (``RL4CO_EVAL_HBM_BUDGET``,
+    default 8e9 bytes): per (augmented) instance the encoder's scores
+    h·N² (two layers' live at once) and the decoder's cached K/V 3·N·d, at 2
+    bytes, plus starts·N of per-trajectory state; about 2× conservative."""
+    if budget_bytes is None:
+        budget_bytes = float(os.environ.get("RL4CO_EVAL_HBM_BUDGET", 8e9))
+    d = int(getattr(policy, "embed_dim", 128))
+    h = int(getattr(policy, "num_heads", 8))
+    layers = int(getattr(policy, "num_encoder_layers", 3))
+    per_inst = 2.0 * (2 * min(layers, 2) * h * n * n + 8 * n * d) + starts * n * 16.0
+    return max(1, int(budget_bytes / (augs * per_inst)))

@@ -340,7 +340,8 @@ def _train(args, mesh, device: str):
         device=device,
     )
     logger = None
-    if (args.log_file or args.tensorboard or args.mlflow) and (mesh is None or mesh.rank == 0):
+    if (args.log_file or args.tensorboard or args.mlflow) and (mesh is None
+                                                                or mesh.process_rank == 0):
         from rl4co_tpu_torch.loggers import (JSONLLogger, MLflowFileLogger, MultiLogger,
                                              TensorBoardLogger)
 

@@ -21,9 +21,12 @@ so it changes what is trained. Every other algorithm takes one
 With a ``mesh`` (`rl4co_tpu_torch.parallel.mesh`), for an algorithm whose
 ``data_parallel`` is true (it raises for any other), every rank runs this loop:
 the parameters start from rank 0's, each train step runs on the rank's rows
-of the global batch (``batch_size``, which must divide by the ranks),
-validation runs the whole set on every rank, and rank 0 alone logs and
-writes checkpoints.
+of the global batch (``batch_size``, which must divide by the dp ranks),
+validation runs the whole set on every rank, and process 0 alone logs and
+writes checkpoints. A mesh with a ``model`` axis takes a policy that
+`rl4co_tpu_torch.parallel.mesh.shard_params_model_axis` split first: each
+split weight starts from dp rank 0's share of its model rank, and every
+process gathers the checkpoint's tree, which process 0 writes whole.
 
 ``profile_dir``: `torch.profiler` traces ``profile_steps`` train steps of the
 first epoch after its first dispatch (closed before validation if the epoch
@@ -45,7 +48,7 @@ from typing import Callable, Optional
 import torch
 
 from rl4co_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
-from rl4co_tpu_torch.parallel.mesh import Mesh, replicate
+from rl4co_tpu_torch.parallel.mesh import Mesh, agree_with_rank0, replicate, tp_parameters
 from rl4co_tpu_torch.rl.baselines import RolloutBaseline, WarmupBaseline
 from rl4co_tpu_torch.rl.reinforce import seeded_generator
 
@@ -96,8 +99,8 @@ class Trainer:
         self.config = config or TrainerConfig()
         self.mesh = mesh
         self.logger = logger or (lambda m: print({k: _fmt(v) for k, v in m.items()}))
-        if mesh is not None and mesh.rank != 0:
-            self.logger = lambda m: None   # rank 0 logs
+        if mesh is not None and mesh.process_rank != 0:
+            self.logger = lambda m: None   # process 0 logs
         self.history: list[dict] = []
 
     def _sync(self) -> None:
@@ -141,9 +144,13 @@ class Trainer:
             bl_policy = getattr(getattr(algo, "baseline_state", None), "bl_policy", None)
             if bl_policy is not None:
                 replicate(bl_policy, mesh)
-        writes = mesh is None or mesh.rank == 0
+        writes = mesh is None or mesh.process_rank == 0
+        # a split policy's checkpoint is gathered by every process
+        gathers = writes or bool(tp_parameters(algo.policy))
 
-        n_params = sum(p.numel() for p in algo.policy.parameters())
+        # the model's size: a split parameter holds 1/model of its elements
+        model_shares = {id(p): m.model for _, p, (_, m) in tp_parameters(algo.policy)}
+        n_params = sum(p.numel() * model_shares.get(id(p), 1) for p in algo.policy.parameters())
         self.logger({"model/params_total": n_params, "seed": cfg.seed,
                      "batch_size": cfg.batch_size, "epochs": cfg.epochs})
 
@@ -228,16 +235,19 @@ class Trainer:
                 cfg.max_hours is not None
                 and time.perf_counter() - fit_t0 > cfg.max_hours * 3600
             )
+            if mesh is not None and cfg.max_hours is not None:
+                out_of_time = agree_with_rank0(out_of_time)   # the clocks differ
 
-            if cfg.ckpt_dir and writes:
+            if cfg.ckpt_dir and gathers:
                 tree = _ckpt_tree(algo, epoch + 1, max(
                     best_monitor, monitor_val if monitor_val is not None else -math.inf), host)
-                if ((epoch + 1) % cfg.ckpt_every == 0 or epoch + 1 == cfg.epochs
-                        or out_of_time):
+                if writes and ((epoch + 1) % cfg.ckpt_every == 0 or epoch + 1 == cfg.epochs
+                               or out_of_time):
                     save_checkpoint(f"{cfg.ckpt_dir}/last.pt", tree)
                 if monitor_val is not None and monitor_val > best_monitor:
                     best_monitor = monitor_val
-                    save_checkpoint(f"{cfg.ckpt_dir}/best.pt", tree)
+                    if writes:
+                        save_checkpoint(f"{cfg.ckpt_dir}/best.pt", tree)
                     self.logger({"epoch": epoch, "ckpt/best_monitor": best_monitor})
 
             if out_of_time:
@@ -267,7 +277,7 @@ class Trainer:
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.stop()
         os.makedirs(self.config.profile_dir, exist_ok=True)
-        name = "trace.json" if self.mesh is None else f"trace_rank{self.mesh.rank}.json"
+        name = "trace.json" if self.mesh is None else f"trace_rank{self.mesh.process_rank}.json"
         prof.export_chrome_trace(os.path.join(self.config.profile_dir, name))
         # the device's kernels; an annotated region's row there (`Optimizer.step#...`)
         # repeats its kernels' time

@@ -258,11 +258,15 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """``grad_norm``: the global norm to clip by, where part of the
+        gradients lies on other processes (tensor parallelism,
+        `rl4co_tpu_torch.parallel.mesh.Mesh.grad_norm`); by default the norm
+        of the gradients in hand."""
         grads = [p.grad for group in self.inner.param_groups for p in group["params"]
                  if p.grad is not None]
         if self.grad_clip is not None and grads:
-            self.grad_norm = torch.linalg.vector_norm(
+            self.grad_norm = grad_norm if grad_norm is not None else torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = self.grad_clip / self.grad_norm.clamp(min=self.grad_clip)
             for g in grads:

@@ -30,17 +30,9 @@ NOT_PORTED = {
     ("rl4co_tpu.envs.routing.local_search", "make_cvrp_ls_fn"):
         "the in-jit local search (jax.pure_callback); the port runs the host segment",
     ("rl4co_tpu.parallel.mesh", "constrain_dp"):
-        "a GSPMD placement annotation: tensor and expert parallelism",
-    ("rl4co_tpu.parallel.mesh", "shard_params_model_axis"):
-        "a GSPMD placement annotation: tensor and expert parallelism",
-    ("rl4co_tpu.parallel.mesh", "tp_role_lookup"):
-        "a GSPMD placement annotation: tensor and expert parallelism",
-    ("rl4co_tpu.models.nn.ops", "TPDense"):
-        "a Dense with a tensor-parallel role; the port's layers are nn.Linear",
+        "a sharding constraint inside jax.jit; an eager rank holds its own rows already",
     ("rl4co_tpu.models.policies.constructive", "init_policy_params"):
         "Flax initialisation; a port module holds its parameters from construction",
-    ("rl4co_tpu.models.policies.constructive", "policy_tp_roles"):
-        "tensor-parallel roles of a Flax tree",
     ("rl4co_tpu.models.policies.multi_env", "init_multi_env_params"):
         "Flax initialisation; a port module holds its parameters from construction",
     ("rl4co_tpu.utils.dtype", "cast_floating"):

@@ -221,13 +221,14 @@ def test_train_step_generates_from_the_reseeded_generator():
 
 
 def test_options_that_are_not_ported_raise():
-    """Tensor and expert parallelism (a mesh's ``model`` axis) are not ported
-    (ROADMAP.md); the Trainer refuses a mesh for a loss with batch means of
-    its own (``data_parallel`` false)."""
+    """A ``model`` axis needs as many processes as the mesh has devices (the
+    JAX package's `make_mesh` asserts ``dp * model`` devices); the Trainer
+    refuses a mesh for a loss with batch means of its own
+    (``data_parallel`` false)."""
     from rl4co_tpu_torch.models.zoo.mdam import MDAM, MDAMPolicy
     from rl4co_tpu_torch.parallel.mesh import Mesh, make_mesh
 
-    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
+    with pytest.raises(ValueError, match=r"dp\(0\) \* model\(2\) != ranks\(1\)"):
         make_mesh(model=2)
     algo = MDAM(get_env("tsp", num_loc=6), MDAMPolicy(device="cpu", embed_dim=16, num_heads=2,
                                                       num_encoder_layers=1))
